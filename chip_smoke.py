@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase is skipped):
+  1. setup: card name and power limit, build of csrc/tri_sweep.cu (nvcc,
+     sm_90a) and its compile log;
+  2. kernel parity: each sweep kernel against its plain PyTorch version on
+     four random meshes, on 4,096 random rays against the leaf-ordered
+     rounded cube, and 100,000 rays from the cube's interior (0 leaks);
+  3. the main path at full width: one config-3 ``render_regen`` wave
+     (rounded_cube.ply, matte, sky.exr env light; 512x512 lanes, depth 5,
+     24 regeneration iterations, NEE, seed 0), with each kernel's launch
+     count read from a run that starts with every count at 0;
+  4. the same scene at 32x32 and 12 iterations on the card and on the CPU
+     (the plain versions): mean radiance and per-lane sample counts agree;
+  5. kernel times at the wave's shapes (its iterations 0 and 8): each
+     kernel held to its plain version there (same gates as phase 2), CUDA
+     events over 20 launches of its wrapper, the plain version's time, and
+     the bound;
+  6. ray order: waves in turns with the rays in lane order (as shipped),
+     in Morton order with dead lanes last, and with dead lanes last only
+     (each sweep call sorts, gathers, sweeps and scatters back);
+  7. torch.profiler over one more wave: device-busy time and the ops that
+     take it.
+
+Prints the kernels' JSON line, the card line, and last
+{"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RES = 512
+DEVICE = "cuda"
+MAX_DEPTH = 5
+REGEN_ITERS = 24
+T_RTOL = 3e-5          # kernel vs plain t on hits (f32 sum order differs)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
+FP32_FLOPS = 67e12          # H100 SXM FP32 (non-tensor) published peak
+# FP32 operations the kernels spend per (ray, face) pair: 4 x 10 FMAs
+# (80) + sign/abs (2) + 3 sign products + eps (1) + 5 compares + 2 adds
+# + 2 products of the t window
+OPS_PER_PAIR = 95
+ROW_KEYS = ("ms", "plain_ms", "bound_ms", "pairs", "live")
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    log(f"FAILED: {msg}")
+    sys.exit(1)
+
+
+def build_scene(res, device):
+    """BASELINE config 3: rounded_cube.ply (leaf order), matte kd
+    (0.6, 0.5, 0.4), image env light sky.exr; the bench.py camera."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.geometry.bvh import attach_bvh
+    from fountain_tpu_torch.io.exr import read_exr
+    from fountain_tpu_torch.io.ply import load_ply
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    mesh = load_ply(os.path.join(ROOT, "data", "rounded_cube.ply"))
+    b = SceneBuilder()
+    env_tex = b.add_image_texture(
+        b.add_image(read_exr(os.path.join(ROOT, "data", "sky.exr"))))
+    mat = b.add_matte(kd=[0.6, 0.5, 0.4])
+    b.add_triangle_mesh(mesh.positions, mesh.indices, normals=mesh.normals,
+                        mat_id=mat)
+    b.add_infinite_light([1.0, 1.0, 1.0], env_tex=env_tex)
+    scene = attach_bvh(b.build(device=device))
+    cam = make_perspective_camera(
+        tf.look_at([25.0, -30.0, 18.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=45.0)
+    return scene, cam
+
+
+def v3(a):
+    from fountain_tpu_torch.core.vecmath import V3
+    return V3(a[:, 0].contiguous(), a[:, 1].contiguous(),
+              a[:, 2].contiguous())
+
+
+def random_mesh(n_tris, seed, spread=10.0):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-spread, spread, (n_tris, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    return np.stack([v0, v1, v2], axis=1)
+
+
+def random_rays(n, seed, spread=12.0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+def check(any_hit, table, o, d, cap, label):
+    """One kernel against its plain version on the same rays; fails on any
+    difference past the gates. Returns the max |kernel - plain| over the
+    hits' t (closest hit) or the occlusion flags (any hit)."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    if any_hit:
+        occ_k = ts.any_hit_kernel(table, o, d, cap)
+        occ_p = ts.any_hit_plain(table, o, d, cap)
+        n_mis = int((occ_k != occ_p).sum())
+        log(f"  {label}, any hit: rays={o.shape[0]} "
+            f"occluded={int(occ_p.sum())} mismatch={n_mis}")
+        if n_mis:
+            fail(f"any-hit parity: {label}")
+        return 0.0
+    t_k, i_k = ts.closest_hit_kernel(table, o, d, cap)
+    t_p, i_p = ts.closest_hit_plain(table, o, d, cap)
+    hit_k, hit_p = i_k >= 0, i_p >= 0
+    n_hit_mis = int((hit_k != hit_p).sum())
+    m = hit_k & hit_p
+    n_idx_mis = int((i_k[m] != i_p[m]).sum())
+    rel = ((t_k[m] - t_p[m]).abs() / t_p[m].abs().clamp_min(1e-9))
+    rel_max = float(rel.max()) if bool(m.any()) else 0.0
+    abs_max = float((t_k[m] - t_p[m]).abs().max()) if bool(m.any()) else 0.0
+    log(f"  {label}, closest hit: rays={o.shape[0]} hits={int(hit_p.sum())} "
+        f"hit_mismatch={n_hit_mis} idx_mismatch={n_idx_mis} "
+        f"t_rel_max={rel_max:.3e}")
+    if n_hit_mis or n_idx_mis or rel_max > T_RTOL:
+        fail(f"closest-hit parity: {label}")
+    return abs_max
+
+
+def compare(table, o, d, cap, label):
+    """Both kernels against their plain versions on the same rays.
+    Returns the max |t| error on hits."""
+    check(True, table, o, d, cap, label)
+    return check(False, table, o, d, cap, label)
+
+
+def phase_parity(cube):
+    from fountain_tpu_torch.geometry.tri_sweep import (closest_hit_kernel,
+                                                       pack_sweep_table)
+    log("phase 2: kernel parity (gates: hit masks equal, idx equal on "
+        f"hits, t rtol {T_RTOL}, any-hit equal)")
+    dev = DEVICE
+    err_t = 0.0
+    cases = [  # (faces, mesh seed, spread, rays, ray seed, ray spread, cap)
+        ("multi-block + ray padding", 128 + 37, 3, 10.0, 1024 + 61, 4, 12.0,
+         float("inf")),
+        ("t_cap any-hit", 200, 5, 10.0, 1024, 6, 12.0, 8.0),
+        ("multi-superblock", 1024 + 3 * 128 + 17, 7, 10.0, 1024, 8, 12.0,
+         float("inf")),
+        ("multi-chunk 8192+261", 8192 + 2 * 128 + 5, 9, 14.0, 1024, 10, 16.0,
+         float("inf")),
+    ]
+    for label, nf, ms, msp, nr, rs, rsp, cap in cases:
+        table = pack_sweep_table(random_mesh(nf, ms, msp), dev)
+        o, d = random_rays(nr, rs, rsp)
+        capt = torch.full((nr,), cap, device=dev).clamp_max(3e38)
+        err_t = max(err_t, compare(table, v3(torch.as_tensor(o, device=dev)),
+                                   v3(torch.as_tensor(d, device=dev)), capt,
+                                   label))
+    rng = np.random.default_rng(7)
+    o = rng.uniform(-25, 25, (4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    err_t = max(err_t, compare(cube.tri_sweep,
+                               v3(torch.as_tensor(o, device=dev)),
+                               v3(torch.as_tensor(d, device=dev)),
+                               torch.full((4096,), 3e38, device=dev),
+                               "rounded cube, 4096 random rays"))
+    nw = 100_000
+    dirs = rng.normal(size=(nw, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    zero = torch.zeros(nw, device=dev)
+    from fountain_tpu_torch.core.vecmath import V3
+    _, idx = closest_hit_kernel(cube.tri_sweep, V3(zero, zero, zero),
+                                v3(torch.as_tensor(dirs, device=dev)),
+                                torch.full((nw,), 3e38, device=dev))
+    leaks = int((idx < 0).sum())
+    log(f"  watertight: {leaks} leaks / {nw} interior rays")
+    if leaks:
+        fail("interior rays leaked")
+    return err_t
+
+
+def phase_wave(scene, cam):
+    """One full-width wave; returns its numbers and the kernel inputs of
+    iterations 0 and 8 (captured during the warm-up wave)."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_regen
+    from fountain_tpu_torch.scene.film import finalize
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    captured = {}
+    originals = {"closest": ts.closest_hit_kernel, "any": ts.any_hit_kernel}
+
+    def recorder(kind):
+        calls = [0]
+
+        def wrapped(table, o, d, t_cap, *a, **k):
+            if calls[0] in (0, 8):
+                captured[(kind, calls[0])] = tuple(
+                    x.clone() for x in (*o, *d, t_cap))
+            calls[0] += 1
+            return originals[kind](table, o, d, t_cap, *a, **k)
+        return wrapped
+
+    log(f"phase 3: render_regen {RES}x{RES}, depth {MAX_DEPTH}, "
+        f"{REGEN_ITERS} iterations, NEE, seed 0")
+    ts.closest_hit_kernel = recorder("closest")
+    ts.any_hit_kernel = recorder("any")
+    try:   # warm-up wave (also records the iteration-0/8 kernel inputs)
+        render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        ts.closest_hit_kernel = originals["closest"]
+        ts.any_hit_kernel = originals["any"]
+    torch.cuda.reset_peak_memory_stats()
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    film, n_rays = render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
+                                seed=0, count_rays=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ts.launch_counts)
+    img = finalize(film)
+    rays = int(n_rays)
+    out = dict(rays_per_wave=rays, wave_s=dt, rays_per_s=rays / dt,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               mean_radiance=float(img.mean()),
+               n_done_min=int(film.weight_sum.min()), launches=launches)
+    log("  " + json.dumps(out))
+    if not bool(torch.isfinite(img).all()):
+        fail("wave image is not finite")
+    if out["n_done_min"] < 1:
+        fail("a lane completed no sample")
+    for name, count in launches.items():
+        if count != REGEN_ITERS:
+            fail(f"{name} launched {count} times in the wave, expected "
+                 f"{REGEN_ITERS}")
+    return out, captured
+
+
+def phase_gpu_vs_cpu():
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_regen
+    res, iters = 32, 12
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    log(f"phase 4: GPU vs CPU at {res}x{res}, {iters} iterations "
+        "(gates: mean radiance rel 1e-3, >= 99% lanes equal n_done)")
+    films = {}
+    for dev in (DEVICE, "cpu"):
+        scene, cam = build_scene(res, dev)
+        films[dev] = render_regen(scene, cam, res, res, iters, cfg, seed=0)
+    g, c = films[DEVICE], films["cpu"]
+    mean = lambda f: float((f.r_sum.sum() + f.g_sum.sum() + f.b_sum.sum())
+                           / (3.0 * f.weight_sum.sum()))
+    mg, mc = mean(g), mean(c)
+    eq = float((g.weight_sum.cpu() == c.weight_sum).float().mean())
+    rel = abs(mg - mc) / max(abs(mc), 1e-12)
+    log(f"  mean radiance gpu={mg:.7f} cpu={mc:.7f} rel={rel:.3e} "
+        f"n_done_equal={eq:.5f}")
+    if rel > 1e-3 or eq < 0.99:
+        fail("GPU and CPU renders disagree")
+
+
+def needed_pairs(table, o, d, t_cap, any_hit, t_eps=1e-4):
+    """(ray, face) pairs the kernel's cull lets through on these rays,
+    per thread: blocks in order, slab test with the same widened boxes
+    and margins, the running best t (closest hit) or the first occluding
+    block (any hit) ending the walk, 128 pairs per tested block."""
+    from fountain_tpu_torch.geometry.tensor_tri import (REL_EPS,
+                                                        ray_features)
+    from fountain_tpu_torch.geometry.tri_sweep import BLOCK_FACES
+    oa, da = o.stack(), d.stack()
+    rf = ray_features(oa, da)
+    inv = 1.0 / torch.where(da == 0.0, 1e-20, da)
+    live = t_cap > t_eps
+    t_run = t_cap.clone()
+    done = torch.zeros_like(live)
+    count = torch.zeros_like(t_cap, dtype=torch.int64)
+    for b in range(table.n_blocks):
+        bb = table.bounds[b]
+        t0 = (bb[0:3] - oa) * inv
+        t1 = (bb[3:6] - oa) * inv
+        t_near = torch.minimum(t0, t1).amax(-1)
+        t_far = torch.maximum(t0, t1).amin(-1)
+        lim = t_cap if any_hit else t_run
+        cand = live & ~done & (t_near <= t_far * 1.0001) & (t_far > 0.0) \
+            & (t_near * 0.9999 < lim)
+        count += cand
+        coef = table.coef[b * BLOCK_FACES:(b + 1) * BLOCK_FACES]
+        q = (rf @ coef.reshape(-1, 10, 4).permute(1, 0, 2).reshape(10, -1)
+             ).reshape(-1, BLOCK_FACES, 4)
+        det, un, vn, tn = q.unbind(-1)
+        s = torch.sign(det)
+        adet = det.abs()
+        U, V, T = un * s, vn * s, tn * s
+        eps = REL_EPS * adet
+        ok = (adet > 1e-20) & (U >= -eps) & (V >= -eps) \
+            & (U + V <= adet + eps) & (T > t_eps * adet) \
+            & (T < lim[:, None] * adet) & cand[:, None]
+        if any_hit:
+            done |= ok.any(-1)
+        else:
+            t = torch.where(ok, T / torch.where(adet == 0, 1.0, adet),
+                            float("inf")).amin(-1)
+            t_run = torch.minimum(t_run, t)
+    return int(count.sum()) * BLOCK_FACES
+
+
+def time_cuda(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernel_times(scene, captured):
+    from fountain_tpu_torch.core.vecmath import V3
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    log("phase 5: kernels at the wave's shapes (iterations 0 and 8; gates "
+        "as in phase 2)")
+    table = scene.tri_sweep
+    table_bytes = table.coef.numel() * 4 + table.bounds.numel() * 4
+    rows = {}
+    for kind, name in (("closest", "tri_sweep_closest"),
+                       ("any", "tri_sweep_any")):
+        any_hit = kind == "any"
+        kern = ts.any_hit_kernel if any_hit else ts.closest_hit_kernel
+        plain = ts.any_hit_plain if any_hit else ts.closest_hit_plain
+        for it in (0, 8):
+            ox, oy, oz, dx, dy, dz, cap = captured[(kind, it)]
+            o, d = V3(ox, oy, oz), V3(dx, dy, dz)
+            n = cap.shape[0]
+            err = check(any_hit, table, o, d, cap, f"{name} iteration {it}")
+            ms = time_cuda(lambda: kern(table, o, d, cap), 20)
+            plain_ms = time_cuda(lambda: plain(table, o, d, cap), 3)
+            pairs = needed_pairs(table, o, d, cap, any_hit)
+            bytes_ = n * 28 + table_bytes + n * (1 if any_hit else 8)
+            t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+            t_ops = pairs * OPS_PER_PAIR / FP32_FLOPS * 1e3
+            row = dict(rays=n, live=int((cap > 1e-4).sum()), pairs=pairs,
+                       ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="operations" if t_ops >= t_bytes
+                       else "bytes", max_abs_err=err)
+            log(f"  {name} iteration {it}: " + json.dumps(row))
+            rows[(name, it)] = row
+    return rows
+
+
+def _morton16(qx, qy, qz):
+    """Interleave three 5-bit ints into a 15-bit Morton code."""
+    def expand(v):
+        v = (v | (v << 8)) & 0x100F
+        v = (v | (v << 4)) & 0x10C3
+        v = (v | (v << 2)) & 0x1249
+        return v
+    return (expand(qz) << 2) | (expand(qy) << 1) | expand(qx)
+
+
+def sort_keys(o, d):
+    """The JAX package's ray sort key (pallas_tri.sort_keys): Morton code
+    of the origin's cell in the high bits, of the direction's cell low."""
+    def qcell(c):
+        lo, hi = c.min(), c.max()
+        return ((c - lo) / (hi - lo).clamp_min(1e-12) * 31.0
+                ).clamp(0.0, 31.0).to(torch.int32)
+    qo = (qcell(o.x), qcell(o.y), qcell(o.z))
+    qd = tuple(((c * 0.5 + 0.5) * 31.0).clamp(0.0, 31.0).to(torch.int32)
+               for c in d)
+    return (_morton16(*qo) << 15) | _morton16(*qd)
+
+
+def phase_ray_order(scene, cam):
+    """Waves in turns under three ray orders. The sorted variants wrap each
+    sweep call: sort, gather the rays, sweep, scatter the results back.
+    Fails if any order changes the image."""
+    from fountain_tpu_torch.core.vecmath import V3
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_regen
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    originals = {"closest": ts.closest_hit_kernel, "any": ts.any_hit_kernel}
+    dead_key = torch.iinfo(torch.int32).max
+
+    def sorted_call(kind, keyf):
+        def call(table, o, d, t_cap, *a, **k):
+            key = torch.where(t_cap > 0.0, keyf(o, d, t_cap), dead_key)
+            perm = torch.argsort(key, stable=True)
+            g = lambda v: V3(*(c[perm] for c in v))              # noqa
+            out = originals[kind](table, g(o), g(d), t_cap[perm], *a, **k)
+            outs = out if isinstance(out, tuple) else (out,)
+            back = tuple(torch.empty_like(x).index_copy_(0, perm, x)
+                         for x in outs)
+            return back if isinstance(out, tuple) else back[0]
+        return call
+
+    variants = {
+        "lane order": None,
+        "Morton, dead last": lambda o, d, c: sort_keys(o, d),
+        "dead last": lambda o, d, c: torch.zeros_like(c, dtype=torch.int32)}
+    log("phase 6: ray order, waves in turns (host clock, "
+        "torch.cuda.synchronize() at the end)")
+    times = {k: [] for k in variants}
+    means = {}
+    turns = list(variants) + list(variants)[::-1]
+    try:
+        for name in turns * 2:
+            keyf = variants[name]
+            ts.closest_hit_kernel = originals["closest"] if keyf is None \
+                else sorted_call("closest", keyf)
+            ts.any_hit_kernel = originals["any"] if keyf is None \
+                else sorted_call("any", keyf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            film = render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
+                                seed=0)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            means[name] = float(film.r_sum.sum() + film.g_sum.sum()
+                                + film.b_sum.sum())
+    finally:
+        ts.closest_hit_kernel = originals["closest"]
+        ts.any_hit_kernel = originals["any"]
+    out = {}
+    for name, v in times.items():
+        out[name] = dict(median_s=float(np.median(v)), waves_s=v)
+        log(f"  {name}: median {out[name]['median_s']:.4f} s over "
+            f"{len(v)} waves {['%.4f' % x for x in v]}")
+    if len(set(means.values())) != 1:
+        fail(f"ray order changed the image: {means}")
+    return out
+
+
+def phase_profile(scene, cam):
+    """Where the wave's time goes: torch.profiler over one more wave
+    (launch counts of this wave are not read). Prints the device-busy
+    share and the top device-time ops; device time that the profiler does
+    not report is printed as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_regen
+    log("phase 7: torch.profiler over one wave")
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg, seed=0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total",         # noqa
+                               getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # device-side entries (kernels, memcpy/memset) vs the aten ops that
+    # launched them: summing both would count the device time twice
+    on_dev = [e for e in events if str(e.device_type).endswith("CUDA")]
+    ops = [e for e in events if e not in on_dev]
+    if not on_dev:
+        log("  device time: not measured (the profiler reported none)")
+        return
+    busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
+    n_launch = sum(e.count for e in on_dev)
+    log(f"  profiled wave: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (share {busy_ms / wall_ms:.3f}; the profiler "
+        f"slows the host, so this share is a lower bound) in {n_launch} "
+        f"device calls ({n_launch / REGEN_ITERS:.0f} per iteration)")
+    for e in sorted(on_dev, key=dev_us, reverse=True)[:8]:
+        log(f"  device {dev_us(e) / 1e3:8.2f} ms {e.count:6d}x "
+            f"{e.key[:80]}")
+    for e in sorted(ops, key=dev_us, reverse=True)[:12]:
+        log(f"  op     {dev_us(e) / 1e3:8.2f} ms {e.count:6d}x {e.key[:80]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is false; this script "
+            "needs an NVIDIA card")
+        return 1
+    sys.path.insert(0, ROOT)
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"phase 1: card {smi}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = ts.build_library()
+    log(f"  built {os.path.relpath(lib, ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(ts.NVCC_FLAGS)})")
+    for line in ts.build_log.splitlines():
+        log("  nvcc: " + line)
+
+    scene, cam = build_scene(RES, DEVICE)
+    err_t = phase_parity(scene)
+    wave, captured = phase_wave(scene, cam)
+    phase_gpu_vs_cpu()
+    times = phase_kernel_times(scene, captured)
+    phase_ray_order(scene, cam)
+    phase_profile(scene, cam)
+
+    kernels = []
+    for name, replaces in (
+            ("tri_sweep_closest",
+             "fountain_tpu/geometry/pallas_tri.py:247 (_kernel)"),
+            ("tri_sweep_any",
+             "fountain_tpu/geometry/pallas_tri.py:310 (_kernel_any)")):
+        r8 = times[(name, 8)]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="fountain_tpu_torch/csrc/tri_sweep.cu",
+            replaces=replaces, launches=wave["launches"][name],
+            max_abs_err=max(r8["max_abs_err"], times[(name, 0)]["max_abs_err"],
+                            0.0 if name == "tri_sweep_any" else err_t),
+            ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
+            bound_by=r8["bound_by"], library_ms=None,
+            it0={k: times[(name, 0)][k] for k in ROW_KEYS},
+            it8={k: r8[k] for k in ROW_KEYS}))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

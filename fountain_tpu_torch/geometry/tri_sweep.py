@@ -1,0 +1,261 @@
+"""The two triangle sweeps: hand-written CUDA kernels and their wrappers.
+
+Counterpart of ``fountain_tpu/geometry/pallas_tri.py``. The TPU package
+ran a closest-hit and an any-hit Möller–Trumbore sweep as Pallas kernels;
+here both are CUDA C++ kernels for Hopper (``csrc/tri_sweep.cu``), built
+with nvcc into a shared library with a plain C interface on first use and
+loaded with ctypes.
+
+Dispatch is by tensor device: rays on the CPU take the plain PyTorch
+version (``tensor_tri.mt_intersect``, the oracle); rays on a CUDA device
+launch the kernel, or raise. Each wrapper adds one to its launch count
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from fountain_tpu_torch.core.vecmath import V3
+from fountain_tpu_torch.geometry.tensor_tri import (TriFeatures,
+                                                    build_tri_features,
+                                                    mt_intersect)
+
+BLOCK_FACES = 128      # faces per leaf block (one shared-memory stage)
+COEF_PER_FACE = 40     # 10 ray features x 4 quantities
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "tri_sweep.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel; reset and read by callers that account for a run
+launch_counts = {"tri_sweep_closest": 0, "tri_sweep_any": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@dataclass
+class SweepTable:
+    """Face tables of both sweeps, faces in LBVH leaf order.
+
+    feat:   [10, F, 4] f32 coefficients (the plain version's table);
+    coef:   [Fpad, 40] f32, the same coefficients face-major (row
+            f = [k][quantity] for k over the 10 ray features), padded with
+            zero faces (det = 0, never accepted) to a multiple of 128;
+    bounds: [Fpad / 128, 8] f32 block AABBs (min xyz, max xyz, 0, 0),
+            widened so the kernels' block cull stays conservative.
+    """
+    feat: TriFeatures
+    coef: torch.Tensor
+    bounds: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.feat.count
+
+    @property
+    def n_blocks(self) -> int:
+        return self.bounds.shape[0]
+
+
+def pack_sweep_table(tri_verts: np.ndarray, device,
+                     feat: TriFeatures | None = None) -> SweepTable:
+    """Build both sweeps' tables from [F, 3, 3] leaf-ordered vertices.
+
+    ``feat`` (optional) supplies the [10, F, 4] coefficients instead of
+    computing them, so a scene carried over from another build traces the
+    identical table.
+    """
+    tv = np.asarray(tri_verts, np.float32)
+    f = len(tv)
+    if feat is None:
+        feat = build_tri_features(tv, device)
+    n_blk = max(-(-f // BLOCK_FACES), 1)
+    coef = torch.zeros((n_blk * BLOCK_FACES, COEF_PER_FACE),
+                       dtype=torch.float32, device=device)
+    coef[:f] = feat.packed.permute(1, 0, 2).reshape(f, COEF_PER_FACE)
+    bounds = np.zeros((n_blk, 8), np.float32)
+    for b in range(n_blk):
+        blk = tv[b * BLOCK_FACES:(b + 1) * BLOCK_FACES].reshape(-1, 3)
+        if not len(blk):
+            # all-padding block: an empty (inverted) box no ray enters
+            bounds[b, 0:3], bounds[b, 3:6] = 1.0, -1.0
+            continue
+        lo, hi = blk.min(0), blk.max(0)
+        # The watertight slack accepts hits up to ~REL_EPS (1e-4) outside a
+        # face in barycentric units; widen by 1e-3 of the block extent plus
+        # a few ulps of the coordinates so the cull never drops such a hit.
+        pad = 1e-3 * float((hi - lo).max()) \
+            + 1e-6 * float(np.abs(blk).max()) + 1e-30
+        bounds[b, 0:3] = lo - pad
+        bounds[b, 3:6] = hi + pad
+    return SweepTable(feat=feat, coef=coef,
+                      bounds=torch.as_tensor(bounds, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Building and loading the CUDA library
+# ---------------------------------------------------------------------------
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build fountain_tpu_torch/csrc/tri_sweep.cu")
+    return path
+
+
+def build_library() -> Path:
+    """Compile csrc/tri_sweep.cu (once per source content) into
+    build/kernels/ and return the library's path. Raises on failure."""
+    global build_log
+    digest = hashlib.sha256(_SRC.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = _BUILD_DIR / f"libtri_sweep_{digest}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                          capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            common = [p, p, p, p, p, p, p, i, p, p, i, fl]
+            lib.tri_sweep_closest.argtypes = common + [p, p, p]
+            lib.tri_sweep_closest.restype = ctypes.c_int
+            lib.tri_sweep_any.argtypes = common + [p, p]
+            lib.tri_sweep_any.restype = ctypes.c_int
+            lib.tri_sweep_error_string.argtypes = [ctypes.c_int]
+            lib.tri_sweep_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def _check(lib, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.tri_sweep_error_string(err).decode()}")
+
+
+def _ray_args(table: SweepTable, o: V3, d: V3, t_cap):
+    """Validate a sweep's inputs (flat [N] f32 on one CUDA device) and
+    return the tensors whose pointers the kernel reads."""
+    dev = t_cap.device
+    cols = [c.to(torch.float32).expand(t_cap.shape).contiguous()
+            for c in (*o, *d)] + [t_cap.to(torch.float32).contiguous()]
+    for c in cols:
+        if c.device != dev or c.dim() != 1:
+            raise ValueError("ray tensors must be flat [N] on one device")
+    if table.coef.device != dev or table.bounds.device != dev:
+        raise ValueError("face table and rays must be on the same device")
+    if (table.coef.dtype != torch.float32 or not table.coef.is_contiguous()
+            or table.coef.shape != (table.n_blocks * BLOCK_FACES,
+                                    COEF_PER_FACE)
+            or not table.bounds.is_contiguous()):
+        raise ValueError("malformed face table")
+    return cols
+
+
+def _launch(name: str, table: SweepTable, cols, t_eps: float, outs):
+    lib = _library()
+    dev = cols[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, name)(*(c.data_ptr() for c in cols), cols[0].shape[0],
+                             table.coef.data_ptr(), table.bounds.data_ptr(),
+                             table.n_blocks, t_eps,
+                             *(x.data_ptr() for x in outs), stream)
+    _check(lib, err, name)
+    launch_counts[name] += 1
+
+
+def closest_hit_kernel(table: SweepTable, o: V3, d: V3, t_cap,
+                       t_eps: float = 1e-4):
+    """Closest-hit sweep on the card. Returns (t, idx) with t = t_cap and
+    idx = -1 on a miss."""
+    cols = _ray_args(table, o, d, t_cap)
+    t_out = torch.empty_like(cols[-1])
+    idx_out = torch.empty(t_out.shape, dtype=torch.int32, device=t_out.device)
+    _launch("tri_sweep_closest", table, cols, t_eps, (t_out, idx_out))
+    return t_out, idx_out
+
+
+def any_hit_kernel(table: SweepTable, o: V3, d: V3, t_cap,
+                   t_eps: float = 1e-4):
+    """Any-hit sweep on the card. Returns occluded [N] bool."""
+    cols = _ray_args(table, o, d, t_cap)
+    occ = torch.empty(cols[-1].shape, dtype=torch.bool,
+                      device=cols[-1].device)
+    _launch("tri_sweep_any", table, cols, t_eps, (occ,))
+    return occ
+
+
+def closest_hit_plain(table: SweepTable, o: V3, d: V3, t_cap,
+                      t_eps: float = 1e-4):
+    """Plain PyTorch version of the closest-hit kernel, same outputs."""
+    t, idx, found = mt_intersect(table.feat, o.stack(), d.stack(), t_cap,
+                                 t_eps=t_eps)
+    return torch.where(found, t, t_cap), torch.where(found, idx, -1)
+
+
+def any_hit_plain(table: SweepTable, o: V3, d: V3, t_cap,
+                  t_eps: float = 1e-4):
+    """Plain PyTorch version of the any-hit kernel, same output."""
+    return mt_intersect(table.feat, o.stack(), d.stack(), t_cap,
+                        t_eps=t_eps, any_hit=True)[2]
+
+
+def mt_intersect_kernel(table: SweepTable, o: V3, d: V3, t_max,
+                        t_eps: float = 1e-4, any_hit: bool = False):
+    """Closest-hit (or any-hit) sweep over the scene's faces.
+
+    Keeps the contract of the JAX package's ``mt_intersect_pallas``:
+    ``t_max = inf`` becomes the cap 3e38, ``t_max < 0`` marks a dead lane,
+    a miss is (t=inf, idx=0, found=False), and in any-hit mode only the
+    boolean is meaningful.
+    Rays on the CPU take the plain version; rays on a CUDA device launch
+    the kernel.
+    """
+    t_cap = torch.where(torch.isfinite(t_max), t_max,
+                        torch.full_like(t_max, 3e38))
+    if t_cap.device.type == "cpu":
+        closest, anyhit = closest_hit_plain, any_hit_plain
+    elif t_cap.device.type == "cuda":
+        closest, anyhit = closest_hit_kernel, any_hit_kernel
+    else:
+        raise ValueError(f"no sweep for device {t_cap.device}")
+    if any_hit:
+        occ = anyhit(table, o, d, t_cap, t_eps)
+        return torch.zeros_like(t_cap), torch.zeros_like(
+            occ, dtype=torch.int32), occ
+    t, idx = closest(table, o, d, t_cap, t_eps)
+    found = idx >= 0
+    return torch.where(found, t, float("inf")), idx.clamp_min(0), found

@@ -1,0 +1,285 @@
+"""Wavefront unidirectional path integrator with NEE + MIS (PyTorch).
+
+Counterpart of ``fountain_tpu/integrator/path.py`` in ``mode="path"``
+with NEE, under path regeneration: the whole wavefront of lanes advances
+together through a bounce loop with an ``active`` mask; NEE picks one
+light per bounce and traces one shadow ray (the light-sampling branch),
+and its MIS partner is the next bounce's emission gather, weighted by the
+power heuristic against the continuation ray's BSDF pdf; Russian roulette
+after 3 bounces; every random number is a counter hash of (lane, sample,
+bounce, slot).
+
+Path regeneration (``regen_fn`` + ``n_iters``; the fixed wave of
+``render_wave`` is not ported yet): a lane whose path ends during the
+first ``n_iters - (max_depth + 1)`` iterations starts its pixel's next
+sample; the remaining iterations drain the paths in flight, so every
+started path completes. The loop is a Python loop over
+``n_iters``; per-lane ``depth`` is the bounce index.
+
+Sampled directions and discrete choices are detached (the detached-
+sampling estimator), as in the JAX package.
+
+Known deviation from fountain, kept from the JAX package: a lane hitting a
+null-BSDF material passes through but consumes a bounce.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from fountain_tpu_torch.core import rng
+from fountain_tpu_torch.core.sampling import power_heuristic
+from fountain_tpu_torch.core.vecmath import (SHADOW_EPSILON, V3, absdot, dot,
+                                             normalize, offset_ray_origin,
+                                             where3, zeros3)
+from fountain_tpu_torch.geometry.intersect import (Hit, scene_intersect,
+                                                   scene_intersect_any,
+                                                   spawn_ray)
+from fountain_tpu_torch.lights.lights import (emitted_radiance,
+                                              environment_light_radiance,
+                                              light_pdf, sample_light)
+from fountain_tpu_torch.scene.build import check_supported
+from fountain_tpu_torch.scene.types import LIGHT_INFINITE, Scene
+from fountain_tpu_torch.shading.bsdf import (bsdf_f_pdf, bsdf_sample,
+                                             gather_shading, has_non_specular,
+                                             local_to_world, world_to_local)
+
+# RNG slot layout within a bounce (dims are bounce*SLOTS + slot); slot 2
+# is the JAX package's direct-mode MIS branch, not used in path mode
+_SLOTS = 4
+_SLOT_BSDF = 0      # u_lobe, u1, u2
+_SLOT_LIGHT = 1     # light select, u_light x2
+_SLOT_RR = 3
+DIM_CAMERA = 1 << 20  # camera jitter/lens dims live far above bounce dims
+
+
+@dataclass(frozen=True)
+class PathConfig:
+    """The JAX package's PathConfig; only nee=True, emit_all_bounces=False,
+    mode="path" are ported yet (trace_paths raises otherwise)."""
+    max_depth: int = 5
+    rr_threshold: float = 1.0
+    nee: bool = True
+    emit_all_bounces: bool = False
+    mode: str = "path"
+
+
+@dataclass
+class RegenResult:
+    """Per-lane radiance summed over all completed samples, the number of
+    completed samples, and (count_rays) the exact useful-ray count."""
+    accum: V3
+    n_done: torch.Tensor
+    n_rays: Optional[torch.Tensor]
+
+
+@dataclass
+class _Lanes:
+    """Per-lane state of the wavefront (all flat [N])."""
+    o: V3
+    d: V3
+    beta: V3
+    radiance: V3
+    active: torch.Tensor
+    specular: torch.Tensor
+    cone_width: torch.Tensor
+    prev_pdf: torch.Tensor
+    lane: torch.Tensor
+    sample: torch.Tensor
+    spread: torch.Tensor
+    n_rays: torch.Tensor
+
+
+def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
+                     active) -> V3:
+    """One-light direct illumination, light-sampling branch: one shadow
+    ray; the BSDF-sampling MIS branch is the continuation ray's emission
+    gather in the bounce loop."""
+    wo_l = world_to_local(hit, hit.wo)
+    ls = sample_light(scene, light_idx, hit.p, u_light[0], u_light[1])
+    wi = V3(ls.wi.x.detach(), ls.wi.y.detach(), ls.wi.z.detach())
+    f, scattering_pdf = bsdf_f_pdf(sp, wo_l, world_to_local(hit, wi))
+    f_cos = f * absdot(wi, hit.ns)
+    light_pdf_val = ls.pdf.detach()
+    possible = (light_pdf_val > 0.0) & ls.radiance.any_positive() \
+        & f_cos.any_positive()
+    o_sh = offset_ray_origin(hit.p, hit.p_err, hit.n, wi)
+    target = where3(ls.is_infinite | ls.is_delta, ls.p_light,
+                    offset_ray_origin(ls.p_light, ls.p_light_err,
+                                      ls.n_light, o_sh - ls.p_light))
+    # lanes without NEE are dead (t_max < 0): the caller drops their light
+    t_max = torch.where(possible & active, 1.0 - SHADOW_EPSILON, -1.0)
+    occluded = scene_intersect_any(scene, o_sh, target - o_sh, t_max)
+    unocc = possible & ~occluded
+    weight_l = torch.where(ls.is_delta, 1.0,
+                           power_heuristic(1, light_pdf_val, 1,
+                                           scattering_pdf.detach()))
+    return where3(unocc, f_cos * ls.radiance
+                  * (weight_l / light_pdf_val.clamp_min(1e-12)), 0.0)
+
+
+def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
+            count_rays: bool) -> None:
+    """Advance every lane by one bounce, in place on ``st``. ``bounce`` is
+    the per-lane bounce index (int tensor)."""
+    n_lights = scene.lights.count
+    ro, rd = st.o, st.d
+    t_max = torch.where(st.active, float("inf"), -1.0)
+    hit = scene_intersect(scene, ro, rd, t_max)
+    if count_rays:
+        st.n_rays = st.n_rays + st.active.sum()
+
+    # emitted radiance: full weight on camera/specular bounces; otherwise
+    # the continuation ray is the MIS BSDF branch of the previous vertex
+    gate = (bounce == 0) | st.specular
+    le_surf = emitted_radiance(scene, hit)
+    if n_lights > 0:
+        lpdf_surf = light_pdf(scene, hit.light_id.clamp_min(0), ro, rd,
+                              hit=hit).detach()
+        w_surf = torch.where(gate, 1.0, power_heuristic(
+            1, st.prev_pdf, 1, lpdf_surf))
+        le_env = zeros3(ro.shape, ro.x.device)
+        for k in range(n_lights):
+            pdf_k = light_pdf(scene, torch.full_like(st.lane, k), ro,
+                              rd).detach()
+            is_inf_k = scene.lights.ltype[k] == LIGHT_INFINITE
+            w_k = torch.where(gate | ~is_inf_k, 1.0, power_heuristic(
+                1, st.prev_pdf, 1, pdf_k))
+            le_env = le_env + environment_light_radiance(scene, k, rd) * w_k
+        le_env = where3(hit.valid, 0.0, le_env)
+        st.radiance = st.radiance + where3(
+            st.active, st.beta * (le_surf * w_surf + le_env), 0.0)
+    else:
+        st.radiance = st.radiance + where3(st.active & gate,
+                                           st.beta * le_surf, 0.0)
+
+    # terminate: escaped or depth cap
+    alive = st.active & hit.valid & (bounce < cfg.max_depth)
+
+    # ray-cone footprint at the hit -> mip filter width in uv space
+    t_hit = torch.where(hit.valid, hit.t, 0.0)
+    width_at_hit = st.cone_width + t_hit * st.spread
+    abs_cos = dot(hit.wo, hit.n).abs()
+    tex_width = width_at_hit * hit.inv_uv_scale / abs_cos.clamp_min(0.05)
+    st.cone_width = torch.where(alive, width_at_hit, st.cone_width)
+
+    sp = gather_shading(scene, hit, tex_width=tex_width)
+    null_bsdf = alive & (sp.mtype < 0)
+
+    if n_lights > 0:
+        u_sel = rng.uniform4(st.lane, st.sample,
+                             bounce * _SLOTS + _SLOT_LIGHT, seed)
+        light_idx = (u_sel[0] * n_lights).to(torch.int32).clamp_max(
+            n_lights - 1)
+        nee_on = alive & has_non_specular(sp) & ~null_bsdf
+        direct = _estimate_direct(scene, hit, sp, light_idx,
+                                  (u_sel[1], u_sel[2]), nee_on)
+        st.radiance = st.radiance + where3(
+            nee_on, st.beta * direct * float(n_lights), 0.0)
+        if count_rays:  # one shadow ray per NEE lane
+            st.n_rays = st.n_rays + nee_on.sum()
+
+    # BSDF sampling for the continuation ray
+    ub = rng.uniform4(st.lane, st.sample, bounce * _SLOTS + _SLOT_BSDF, seed)
+    bs = bsdf_sample(sp, world_to_local(hit, hit.wo), ub[0], ub[1], ub[2])
+    wi_w = normalize(local_to_world(hit, bs.wi))
+    wi_w = V3(wi_w.x.detach(), wi_w.y.detach(), wi_w.z.detach())
+    f_ok = bs.valid & bs.f.any_nonzero()
+    contrib = bs.f * (absdot(wi_w, hit.ns) / bs.pdf.detach().clamp_min(1e-12))
+    new_beta = st.beta * where3(f_ok, contrib, 1.0)
+    new_o = spawn_ray(hit, wi_w)
+
+    # null bsdf: pass through unchanged
+    pass_o = offset_ray_origin(hit.p, hit.p_err, hit.n, rd)
+    st.o = where3(null_bsdf, pass_o, where3(alive, new_o, ro))
+    st.d = where3(null_bsdf, rd, where3(alive, wi_w, rd))
+    st.beta = where3(alive & ~null_bsdf, new_beta, st.beta)
+    st.specular = torch.where(null_bsdf, st.specular,
+                              torch.where(alive, bs.is_specular, st.specular))
+    st.prev_pdf = torch.where(null_bsdf, st.prev_pdf,
+                              torch.where(alive, bs.pdf.detach(),
+                                          st.prev_pdf))
+    alive = alive & (null_bsdf | f_ok)
+
+    # Russian roulette
+    if cfg.rr_threshold > 0.0:
+        u_rr = rng.uniform1(st.lane, st.sample, bounce * _SLOTS + _SLOT_RR,
+                            seed)
+        beta_max = st.beta.max_component().detach()
+        do_rr = alive & (beta_max < cfg.rr_threshold) & (bounce > 3)
+        q = (1.0 - beta_max).clamp_min(0.05)
+        die = do_rr & (u_rr < q)
+        st.beta = where3(do_rr & ~die,
+                         st.beta * (1.0 / (1.0 - q).clamp_min(1e-6)),
+                         st.beta)
+        alive = alive & ~die
+    st.active = alive
+
+
+def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
+                seed=0, count_rays: bool = False,
+                regen_fn: Optional[Callable] = None,
+                n_iters: Optional[int] = None) -> RegenResult:
+    """Trace a path-regeneration wave, one camera path per lane at a time.
+
+    o, d: camera rays (V3 of flat [N]); lane/sample: int tensors [N]
+    feeding the counter RNG; ``regen_fn(lane, sample) -> (o, d, spread)``
+    makes the rays of a lane's next sample. With count_rays=True the
+    result carries n_rays: one closest-hit ray per active lane per
+    iteration plus one shadow ray per NEE lane.
+    """
+    if regen_fn is None:
+        raise NotImplementedError(
+            "the fixed wave (regen_fn=None) is not ported yet")
+    if cfg.mode != "path" or not cfg.nee or cfg.emit_all_bounces:
+        raise NotImplementedError(
+            "only mode='path' with nee=True is ported yet")
+    check_supported(scene)
+    n, dev = o.shape, o.x.device
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    st = _Lanes(
+        o=o, d=d, beta=V3(ones, ones, ones), radiance=zeros3(n, dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        specular=torch.zeros(n, dtype=torch.bool, device=dev),
+        cone_width=torch.zeros(n, dtype=torch.float32, device=dev),
+        prev_pdf=ones,
+        lane=torch.as_tensor(lane, dtype=torch.int32, device=dev).expand(n),
+        sample=torch.as_tensor(sample, dtype=torch.int32,
+                               device=dev).expand(n),
+        spread=torch.zeros(n, dtype=torch.float32, device=dev),
+        n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+    k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
+    # refill window: paths started before it have max_depth+1 iterations
+    # left, so they complete inside the wave
+    r_win = k_iters - (cfg.max_depth + 1)
+    depth = torch.zeros(n, dtype=torch.int32, device=dev)
+    accum = zeros3(n, dev)
+    n_done = torch.zeros(n, dtype=torch.int32, device=dev)
+    for it in range(k_iters):
+        was = st.active
+        _bounce(scene, st, depth, cfg, seed, count_rays)
+        finished = was & ~st.active
+        accum = accum + where3(finished, st.radiance, 0.0)
+        n_done = n_done + finished.to(torch.int32)
+        grown = torch.where(st.active, depth + 1, depth)
+        if it >= r_win:
+            depth = grown
+            continue
+        refill = finished
+        new_sample = st.sample + 1
+        o2, d2, sp2 = regen_fn(st.lane, new_sample)
+        st.o = where3(refill, o2, st.o)
+        st.d = where3(refill, d2, st.d)
+        st.radiance = where3(refill, 0.0, st.radiance)
+        st.beta = where3(refill, 1.0, st.beta)
+        st.specular = st.specular & ~refill
+        st.cone_width = torch.where(refill, 0.0, st.cone_width)
+        st.spread = torch.where(refill, sp2, st.spread)
+        st.prev_pdf = torch.where(refill, 1.0, st.prev_pdf)
+        st.sample = torch.where(refill, new_sample, st.sample)
+        depth = torch.where(refill, 0, grown).to(torch.int32)
+        st.active = st.active | refill
+    return RegenResult(accum, n_done, st.n_rays if count_rays else None)

@@ -1,0 +1,170 @@
+"""Light emission, sampling and pdf queries (PyTorch).
+
+Counterpart of the parts of ``fountain_tpu/lights/lights.py`` that an
+env-lit scene reaches: area emission at hits, the environment radiance of
+escaped rays, and the infinite-light branches (uniform sphere, or the
+per-light env-map alias table) of ``sample_light`` and ``light_pdf``.
+Point, distant and area lights are not ported yet; scenes that use them
+are refused at setup (``scene.build``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from fountain_tpu_torch.core.sampling import (pdf_env_alias,
+                                              sample_env_alias,
+                                              uniform_sample_sphere)
+from fountain_tpu_torch.core.vecmath import (PI, V3, dot, normalize, where3,
+                                             zeros3)
+from fountain_tpu_torch.geometry.intersect import Hit
+from fountain_tpu_torch.scene.types import (LIGHT_DISTANT, LIGHT_INFINITE,
+                                            LIGHT_POINT, Scene)
+
+INV_2PI = 1.0 / (2.0 * PI)
+INV_PI = 1.0 / PI
+
+
+def dir_to_env_uv(d: V3):
+    """Equirect uv of a unit direction (theta from +z, phi from +x)."""
+    theta = torch.arccos(d.z.clamp(-1.0, 1.0))
+    phi = torch.atan2(d.y, d.x)
+    phi = torch.where(phi < 0.0, phi + 2.0 * PI, phi)
+    return phi * INV_2PI, 1.0 - theta * INV_PI
+
+
+def env_uv_to_dir(u, v):
+    theta = PI * (1.0 - v)
+    phi = 2.0 * PI * u
+    sin_t = torch.sin(theta)
+    return V3(sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+              torch.cos(theta)), sin_t
+
+
+def _eval_env_tex(scene: Scene, tex_id, u, v) -> V3:
+    """Evaluate an env radiance texture id at env uv (batched)."""
+    from fountain_tpu_torch.shading.textures import eval_texture
+    lookup = None
+    if scene.env_images is not None:
+        from fountain_tpu_torch.shading.mipmap import lookup_trilinear
+        lookup = lambda iid, uu, vv, w=None: lookup_trilinear(  # noqa
+            scene.env_images, iid, uu, vv, w)
+    return eval_texture(scene.textures, tex_id, u, v, tex_lookup=lookup)
+
+
+def _rows3(table: torch.Tensor, li) -> V3:
+    r = table[li]
+    return V3(r[:, 0], r[:, 1], r[:, 2])
+
+
+@dataclass
+class LightSample:
+    radiance: V3
+    wi: V3                    # towards the light
+    pdf: torch.Tensor         # [N] solid-angle density
+    p_light: V3               # visibility endpoint
+    p_light_err: V3
+    n_light: V3
+    is_delta: torch.Tensor    # [N] bool
+    is_infinite: torch.Tensor  # [N] bool
+
+
+def emitted_radiance(scene: Scene, hit: Hit) -> V3:
+    """One-sided area-light emission toward the viewer at surface hits."""
+    lid = hit.light_id.clamp(0, max(scene.lights.count - 1, 0))
+    emit = _rows3(scene.lights.emit, lid)
+    visible = dot(hit.n, hit.wo) > 0.0
+    on = (hit.light_id >= 0) & hit.valid & visible
+    return where3(on, emit, 0.0)
+
+
+def environment_radiance(scene: Scene, d: V3) -> V3:
+    """Total radiance from infinite lights for escaped rays."""
+    total = zeros3(d.shape, d.x.device)
+    for i in range(scene.lights.count):
+        total = total + environment_light_radiance(scene, i, d)
+    return total
+
+
+def environment_light_radiance(scene: Scene, i: int, d: V3) -> V3:
+    """Radiance of infinite light ``i`` alone for escaped rays in direction
+    d (zero when light i is not infinite)."""
+    lt = scene.lights
+    u, v = dir_to_env_uv(normalize(d))
+    ones = torch.ones_like(u)
+    radiance = V3(lt.emit[i, 0] * ones, lt.emit[i, 1] * ones,
+                  lt.emit[i, 2] * ones)
+    if scene.env_images is not None:
+        tex_rgb = _eval_env_tex(scene, lt.env_tex[i].expand(u.shape), u, v)
+        radiance = where3(lt.env_tex[i] >= 0, radiance * tex_rgb, radiance)
+    return where3(lt.ltype[i] == LIGHT_INFINITE, radiance, 0.0)
+
+
+def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
+    """Sample incident illumination from per-lane light ``light_idx``.
+    Env-mapped infinite lights importance-sample scene.env_dist; plain
+    infinite lights use uniform-sphere directions."""
+    lt = scene.lights
+    n, dev = ref_p.shape, ref_p.x.device
+    li = light_idx.clamp(0, max(lt.count - 1, 0))
+    ltype = lt.ltype[li]
+    emit = _rows3(lt.emit, li)
+    env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
+    is_delta = (ltype == LIGHT_POINT) | (ltype == LIGHT_DISTANT)
+    is_infinite = (ltype == LIGHT_INFINITE) | (ltype == LIGHT_DISTANT)
+
+    # infinite light: endpoint at 2 * world radius
+    sel = ltype == LIGHT_INFINITE
+    wi_u = uniform_sample_sphere(u1, u2)
+    pdf_u = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32, device=dev)
+    rad_u = emit
+    if scene.env_dist is not None:
+        slot = env_slot.clamp_min(0)
+        ue, ve, pdf_uv = sample_env_alias(scene.env_dist, slot, u1, u2)
+        wi_e, sin_t = env_uv_to_dir(ue, ve)
+        pdf_e = torch.where(
+            sin_t > 0.0,
+            pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
+        rad_e = emit * _eval_env_tex(scene, env_tex, ue, ve)
+        has_env = (env_tex >= 0) & (env_slot >= 0)
+        wi_u = where3(has_env, wi_e, wi_u)
+        pdf_u = torch.where(has_env, pdf_e, pdf_u)
+        rad_u = where3(has_env, rad_e, rad_u)
+    elif scene.env_images is not None:
+        u_env, v_env = dir_to_env_uv(wi_u)
+        rad_e = emit * _eval_env_tex(scene, env_tex, u_env, v_env)
+        rad_u = where3(env_tex >= 0, rad_e, rad_u)
+    p_inf = ref_p + wi_u * (2.0 * scene.world_radius)
+    zero = zeros3(n, dev)
+    return LightSample(
+        radiance=where3(sel, rad_u, zero), wi=where3(sel, wi_u, zero),
+        pdf=torch.where(sel, pdf_u, 0.0), p_light=where3(sel, p_inf, zero),
+        p_light_err=zero, n_light=zero, is_delta=is_delta,
+        is_infinite=is_infinite)
+
+
+def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
+              hit: Hit = None) -> torch.Tensor:
+    """Solid-angle pdf that ``sample_light`` would pick direction wi:
+    1/4pi for a uniform infinite light, the alias-table pdf with the
+    sin(theta) Jacobian for an env-mapped one, 0 otherwise."""
+    lt = scene.lights
+    n, dev = ref_p.shape, ref_p.x.device
+    li = light_idx.clamp(0, max(lt.count - 1, 0))
+    ltype = lt.ltype[li]
+    pdf_inf = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32,
+                         device=dev)
+    if scene.env_dist is not None:
+        env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
+        wn = normalize(wi)
+        u_env, v_env = dir_to_env_uv(wn)
+        sin_t = torch.sqrt((1.0 - wn.z ** 2).clamp_min(0.0))
+        pdf_uv = pdf_env_alias(scene.env_dist, env_slot.clamp_min(0),
+                               u_env, v_env)
+        pdf_env = torch.where(
+            sin_t > 0.0,
+            pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
+        has_env = (env_tex >= 0) & (env_slot >= 0)
+        pdf_inf = torch.where(has_env, pdf_env, pdf_inf)
+    return torch.where(ltype == LIGHT_INFINITE, pdf_inf, 0.0)

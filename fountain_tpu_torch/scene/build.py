@@ -1,0 +1,300 @@
+"""Host-side scene assembly (SceneBuilder) and the bridge from JAX leaves.
+
+Counterpart of ``fountain_tpu/scene/build.py`` for the content an
+env-lit mesh scene needs: images and image/constant textures, matte
+materials, triangle meshes and infinite lights. ``build()`` compiles the
+rows into a ``Scene`` of tensors on the chosen device, with the world
+bounds, the mipmapped image atlas and the per-light env alias tables.
+
+``scene_from_arrays`` turns the leaves of a ``fountain_tpu`` Scene (given
+as numpy arrays under their dotted field paths) into the port's Scene, so
+tests trace identical tables in both packages without this package
+importing JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fountain_tpu_torch.device import resolve_device
+from fountain_tpu_torch.scene.types import (LIGHT_INFINITE, MAT_MATTE,
+                                            TEX_CONSTANT, TEX_IMAGE, Lights,
+                                            Materials, Scene, Spheres,
+                                            Textures, Triangles)
+
+
+def check_supported(scene: Scene) -> None:
+    """Raise on scene content the port does not compute yet."""
+    if scene.spheres.count:
+        raise NotImplementedError("spheres are not ported yet")
+    if bool((scene.lights.ltype != LIGHT_INFINITE).any()):
+        raise NotImplementedError(
+            "only infinite (uniform or env-mapped) lights are ported yet")
+    if bool((scene.materials.mtype != MAT_MATTE).any()):
+        raise NotImplementedError("only matte materials are ported yet")
+    if scene.textures.has_nested:
+        raise NotImplementedError("checker/scale textures are not ported")
+    if scene.light_tri is not None:
+        raise NotImplementedError("mesh area lights are not ported yet")
+
+
+def _empty_spheres(device) -> Spheres:
+    z = torch.zeros((0,), dtype=torch.float32, device=device)
+    m = torch.zeros((0, 4, 4), dtype=torch.float32, device=device)
+    zi = torch.zeros((0,), dtype=torch.int32, device=device)
+    return Spheres(o2w=m, w2o=m, radius=z, z_min=z, z_max=z, phi_max=z,
+                   mat_id=zi, light_id=zi,
+                   flip_normal=torch.zeros((0,), dtype=torch.bool,
+                                           device=device))
+
+
+def _env_density(img: np.ndarray) -> np.ndarray:
+    """Env-map sampling density: luminance * sin(theta), tent-convolved
+    ([1/8, 3/4, 1/8], wrap in u, clamp in v) so pdf > 0 wherever the
+    bilerped radiance is > 0. Row 0 is the image bottom (v = 0)."""
+    lum = (0.212671 * img[..., 0] + 0.715160 * img[..., 1]
+           + 0.072169 * img[..., 2])
+    k = np.array([0.125, 0.75, 0.125], np.float32)
+    pad = np.concatenate([lum[:, -1:], lum, lum[:, :1]], axis=1)
+    lum_u = k[0] * pad[:, :-2] + k[1] * pad[:, 1:-1] + k[2] * pad[:, 2:]
+    pad = np.concatenate([lum_u[:1], lum_u, lum_u[-1:]], axis=0)
+    return k[0] * pad[:-2] + k[1] * pad[1:-1] + k[2] * pad[2:]
+
+
+class SceneBuilder:
+    def __init__(self):
+        self._tex = []
+        self._mat = []
+        self._lights = []
+        self._tri_meshes = []
+        self._images = []
+        self._image_wraps = []
+        # texture id 0 is reserved "black"
+        self.add_constant_texture([0.0, 0.0, 0.0])
+
+    def add_image(self, img, wrap: int = 0) -> int:
+        """Register a raw [H, W, 3] linear image; returns its atlas id."""
+        self._images.append(np.asarray(img, np.float32))
+        self._image_wraps.append(int(wrap))
+        return len(self._images) - 1
+
+    def _add_tex(self, **kw) -> int:
+        row = dict(ttype=TEX_CONSTANT, value=[0.0, 0.0, 0.0], sub_a=0,
+                   sub_b=0, uv_scale=[1.0, 1.0], uv_offset=[0.0, 0.0],
+                   image_id=-1)
+        row.update(kw)
+        self._tex.append(row)
+        return len(self._tex) - 1
+
+    def add_constant_texture(self, value) -> int:
+        value = np.broadcast_to(np.asarray(value, np.float32), (3,)).tolist()
+        return self._add_tex(ttype=TEX_CONSTANT, value=value)
+
+    def add_image_texture(self, image_id: int, uscale=1.0, vscale=1.0,
+                          uoffset=0.0, voffset=0.0) -> int:
+        return self._add_tex(ttype=TEX_IMAGE, image_id=image_id,
+                             uv_scale=[uscale, vscale],
+                             uv_offset=[uoffset, voffset])
+
+    def _tex_or_const(self, v) -> int:
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        return self.add_constant_texture(v)
+
+    def add_matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0) -> int:
+        self._mat.append(dict(mtype=MAT_MATTE, kd_tex=self._tex_or_const(kd),
+                              sigma_tex=self._tex_or_const([sigma] * 3)))
+        return len(self._mat) - 1
+
+    def add_triangle_mesh(self, positions, indices, normals=None, uv=None,
+                          mat_id=-1, reverse_orientation=False) -> int:
+        """World-space positions [V,3], indices [F,3] (object-to-world
+        transforms are not ported yet)."""
+        positions = np.asarray(positions, np.float32)
+        if normals is not None:
+            normals = np.asarray(normals, np.float32)
+            ln = np.linalg.norm(normals, axis=-1, keepdims=True)
+            normals = normals / np.maximum(ln, 1e-20)
+        self._tri_meshes.append(dict(
+            positions=positions, indices=np.asarray(indices, np.int32),
+            normals=normals, uv=uv, mat_id=int(mat_id),
+            flip_normal=bool(reverse_orientation)))
+        return len(self._tri_meshes) - 1
+
+    def add_infinite_light(self, radiance=(1.0, 1.0, 1.0),
+                           env_tex: int = -1) -> int:
+        self._lights.append(dict(emit=list(map(float, radiance)),
+                                 env_tex=int(env_tex)))
+        return len(self._lights) - 1
+
+    def build(self, device=None) -> Scene:
+        """Compile the rows into a Scene on ``device`` (default cuda)."""
+        dev = resolve_device(device)
+        f32 = lambda a: torch.as_tensor(                      # noqa: E731
+            np.asarray(a, np.float32), device=dev)
+        i32 = lambda a: torch.as_tensor(                      # noqa: E731
+            np.asarray(a, np.int32), device=dev)
+        b8 = lambda a: torch.as_tensor(                       # noqa: E731
+            np.asarray(a, bool), device=dev)
+
+        meshes = self._tri_meshes
+        v_off = np.cumsum([0] + [len(m["positions"]) for m in meshes])[:-1]
+        pos_all = np.concatenate([m["positions"] for m in meshes]) \
+            if meshes else np.zeros((0, 3), np.float32)
+        per_face = lambda key: np.concatenate(                # noqa: E731
+            [np.full(len(m["indices"]), m[key]) for m in meshes]) \
+            if meshes else np.zeros((0,))
+        triangles = Triangles(
+            positions=f32(pos_all),
+            indices=i32(np.concatenate([m["indices"] + o for m, o in
+                                        zip(meshes, v_off)])
+                        if meshes else np.zeros((0, 3))),
+            normals=f32(np.concatenate(
+                [m["normals"] if m["normals"] is not None
+                 else np.zeros_like(m["positions"]) for m in meshes])
+                if meshes else np.zeros((0, 3))),
+            has_normals=b8(np.concatenate(
+                [np.full(len(m["indices"]), m["normals"] is not None)
+                 for m in meshes]) if meshes else np.zeros((0,))),
+            uv=f32(np.concatenate(
+                [np.asarray(m["uv"], np.float32) if m["uv"] is not None
+                 else np.zeros((len(m["positions"]), 2), np.float32)
+                 for m in meshes]) if meshes else np.zeros((0, 2))),
+            mat_id=i32(per_face("mat_id")),
+            light_id=i32(np.full(len(per_face("mat_id")), -1)),
+            flip_normal=b8(per_face("flip_normal")),
+            mesh_id=i32(np.concatenate(
+                [np.full(len(m["indices"]), k) for k, m in enumerate(meshes)])
+                if meshes else np.zeros((0,))))
+
+        mats = self._mat or [dict(mtype=MAT_MATTE, kd_tex=0, sigma_tex=0)]
+        n_mat = len(mats)
+        materials = Materials(
+            mtype=i32([r["mtype"] for r in mats]),
+            kd_tex=i32([r["kd_tex"] for r in mats]),
+            ks_tex=i32(np.zeros(n_mat)), kr_tex=i32(np.zeros(n_mat)),
+            kt_tex=i32(np.zeros(n_mat)),
+            sigma_tex=i32([r["sigma_tex"] for r in mats]),
+            rough_u_tex=i32(np.zeros(n_mat)),
+            rough_v_tex=i32(np.zeros(n_mat)),
+            eta=f32(np.full(n_mat, 1.5)), eta3=f32(np.ones((n_mat, 3))),
+            k3=f32(np.ones((n_mat, 3))), remap_roughness=b8(np.ones(n_mat)))
+
+        tex = self._tex
+        textures = Textures(
+            ttype=i32([r["ttype"] for r in tex]),
+            value=f32([r["value"] for r in tex]),
+            sub_a=i32([r["sub_a"] for r in tex]),
+            sub_b=i32([r["sub_b"] for r in tex]),
+            uv_scale=f32([r["uv_scale"] for r in tex]),
+            uv_offset=f32([r["uv_offset"] for r in tex]),
+            image_id=i32([r["image_id"] for r in tex]), has_nested=False)
+
+        # world bounds (bounding sphere used by infinite lights)
+        lo = np.full(3, np.inf, np.float32)
+        hi = np.full(3, -np.inf, np.float32)
+        for m in meshes:
+            if len(m["positions"]):
+                lo = np.minimum(lo, m["positions"].min(0))
+                hi = np.maximum(hi, m["positions"].max(0))
+        if not np.all(np.isfinite(lo)):
+            lo = np.zeros(3, np.float32)
+            hi = np.ones(3, np.float32)
+        center = (lo + hi) / 2.0
+        radius = float(np.linalg.norm(hi - center))
+
+        # image atlas + per-light env-map importance tables
+        atlas = env_dist = None
+        env_slots = {}
+        if self._images:
+            from fountain_tpu_torch.core.sampling import make_env_alias_stack
+            from fountain_tpu_torch.shading.mipmap import build_atlas
+            atlas = build_atlas(self._images, self._image_wraps, dev)
+            per_light = [(lid, tex[r["env_tex"]]["image_id"])
+                         for lid, r in enumerate(self._lights)
+                         if r["env_tex"] >= 0
+                         and tex[r["env_tex"]]["ttype"] == TEX_IMAGE]
+            if per_light:
+                # common grid: nearest-upsample every map to the largest
+                nv_c = max(self._images[i].shape[0] for _, i in per_light)
+                nu_c = max(self._images[i].shape[1] for _, i in per_light)
+                funcs = []
+                for slot, (lid, img_id) in enumerate(per_light):
+                    lum_b = _env_density(self._images[img_id])
+                    h, w = lum_b.shape
+                    if (h, w) != (nv_c, nu_c):
+                        ri = np.minimum((np.arange(nv_c) * h) // nv_c, h - 1)
+                        ci = np.minimum((np.arange(nu_c) * w) // nu_c, w - 1)
+                        lum_b = lum_b[ri][:, ci]
+                    v = (np.arange(nv_c, dtype=np.float32) + 0.5) / nv_c
+                    sin_t = np.sin(np.pi * (1.0 - v))
+                    funcs.append(lum_b * sin_t[:, None])
+                    env_slots[lid] = slot
+                env_dist = make_env_alias_stack(funcs, dev)
+
+        lt = self._lights
+        n_l = len(lt)
+        lights = Lights(
+            ltype=i32(np.full(n_l, LIGHT_INFINITE)),
+            emit=f32(np.asarray([r["emit"] for r in lt]).reshape(n_l, 3)),
+            pos=f32(np.zeros((n_l, 3))),
+            dir=f32(np.tile([0.0, 0.0, 1.0], (n_l, 1))),
+            shape_id=i32(np.full(n_l, -1)), tri_start=i32(np.zeros(n_l)),
+            tri_count=i32(np.zeros(n_l)),
+            env_tex=i32([r["env_tex"] for r in lt]),
+            area=f32(np.zeros(n_l)),
+            env_slot=i32([env_slots.get(i, -1) for i in range(n_l)]))
+
+        return Scene(
+            spheres=_empty_spheres(dev), triangles=triangles,
+            materials=materials, textures=textures, lights=lights,
+            world_center=f32(center),
+            world_radius=f32(max(radius, 1e-3)),
+            env_images=atlas, env_dist=env_dist)
+
+
+def scene_from_arrays(arrays: dict, device=None) -> Scene:
+    """The port's Scene from the leaves of a ``fountain_tpu`` Scene.
+
+    ``arrays`` maps each leaf's dotted field path to its numpy value, e.g.
+    ``"triangles.positions"``, ``"textures.value"``, ``"env_dist.prob"``,
+    ``"tri_attr"``. The sweeps' face table takes the JAX package's dense
+    coefficients (``"tri_features.packed"``) as they are, with block
+    bounds from the leaf-ordered vertices (``"bvh_tri_verts"``). Leaves of
+    the TPU-only tables (``tri_qfeat``, the BVH walk) are ignored.
+    Raises on content the port does not compute yet.
+    """
+    from fountain_tpu_torch.core.sampling import EnvAlias
+    from fountain_tpu_torch.geometry.tensor_tri import TriFeatures
+    from fountain_tpu_torch.geometry.tri_sweep import pack_sweep_table
+    from fountain_tpu_torch.shading.mipmap import ImageAtlas
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.array(arrays[key]), device=dev)
+
+    def group(cls, prefix, **extra):
+        names = [f for f in cls.__dataclass_fields__ if f not in extra]
+        return cls(**{f: t(f"{prefix}.{f}") for f in names}, **extra)
+
+    scene = Scene(
+        spheres=group(Spheres, "spheres"),
+        triangles=group(Triangles, "triangles"),
+        materials=group(Materials, "materials"),
+        textures=group(Textures, "textures", has_nested=bool(
+            np.asarray(arrays.get("textures.has_nested", [])).shape[0])),
+        lights=group(Lights, "lights"),
+        world_center=t("world_center"), world_radius=t("world_radius"),
+        tri_attr=t("tri_attr") if "tri_attr" in arrays else None,
+        light_tri=t("light_tri") if "light_tri" in arrays else None,
+        env_images=group(ImageAtlas, "env_images")
+        if "env_images.texels" in arrays else None,
+        env_dist=group(EnvAlias, "env_dist")
+        if "env_dist.prob" in arrays else None)
+    if scene.triangles.count:
+        feat = TriFeatures(t("tri_features.packed")) \
+            if "tri_features.packed" in arrays else None
+        scene.tri_sweep = pack_sweep_table(arrays["bvh_tri_verts"], dev,
+                                           feat=feat)
+    check_supported(scene)
+    return scene
