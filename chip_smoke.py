@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is skipped):
   1. setup: card name and power limit, build of csrc/tri_sweep.cu (nvcc,
-     sm_90a) and its compile log;
+     sm_90a), its compile log, and each kernel's build facts (registers,
+     shared memory, spills, thread blocks per SM);
   2. kernel parity: each sweep kernel against its plain PyTorch version on
      four random meshes, on 4,096 random rays against the leaf-ordered
      rounded cube, and 100,000 rays from the cube's interior (0 leaks);
@@ -17,17 +18,23 @@ Phases (any failure exits non-zero; no phase is skipped):
      (the plain versions): mean radiance and per-lane sample counts agree;
   5. kernel times at the wave's shapes (its iterations 0 and 8): each
      kernel held to its plain version there (same gates as phase 2), CUDA
-     events over 20 launches of its wrapper, the plain version's time, and
-     the bound;
+     events over 20 launches of its wrapper (``ms``) and over 30 launches
+     of the library call alone with outputs preallocated (``kernel_ms``),
+     the plain version's time, the bound,
+     the pairs the cull lets through (``pairs``) and the lane-pairs a
+     one-thread-per-ray kernel in lane order spends on them
+     (``warp_pairs``: 32 x 128 x the blocks any lane of a warp needs);
   6. ray order: waves in turns with the rays in lane order (as shipped),
      in Morton order with dead lanes last, and with dead lanes last only
      (each sweep call sorts, gathers, sweeps and scatters back);
-  7. torch.profiler over one more wave: device-busy time and the ops that
-     take it.
+  7. torch.profiler over one more wave: device-busy time, the ops that
+     take it, and each sweep kernel's device time over its 24 launches and
+     at its launches of iterations 0 and 8 (to set beside phase 5).
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import functools
 import json
 import os
 import subprocess
@@ -45,11 +52,18 @@ REGEN_ITERS = 24
 T_RTOL = 3e-5          # kernel vs plain t on hits (f32 sum order differs)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 FP32_FLOPS = 67e12          # H100 SXM FP32 (non-tensor) published peak
-# FP32 operations the kernels spend per (ray, face) pair: 4 x 10 FMAs
-# (80) + sign/abs (2) + 3 sign products + eps (1) + 5 compares + 2 adds
-# + 2 products of the t window
-OPS_PER_PAIR = 95
-ROW_KEYS = ("ms", "plain_ms", "bound_ms", "pairs", "live")
+# FP32 operations a (ray, face) pair needs, an FMA counted as 2 (the rate
+# FP32_FLOPS counts it so). The four Moller-Trumbore quantities over the
+# face's 16 non-zero coefficients: det 1 multiply + 2 FMAs (5), u and v
+# 1 multiply + 5 FMAs each (11 + 11), t 1 multiply + 2 FMAs + 1 add (6):
+# 33. The acceptance rule: eps = 1e-4 * |det| (1), U + V and |det| + eps
+# (2), the t window's two products (2), 6 compares (6): 11. Not counted:
+# |det| and the sign flips by det's sign (bit operations), the division
+# for t (accepted pairs only) and the 10 x 4 table's 21 zero
+# coefficients (no work).
+OPS_PER_PAIR = 33 + 11
+ROW_KEYS = ("ms", "kernel_ms", "plain_ms", "bound_ms", "pairs",
+            "warp_pairs", "live")
 
 
 def log(*a):
@@ -275,9 +289,11 @@ def phase_gpu_vs_cpu():
 
 def needed_pairs(table, o, d, t_cap, any_hit, t_eps=1e-4):
     """(ray, face) pairs the kernel's cull lets through on these rays,
-    per thread: blocks in order, slab test with the same widened boxes
-    and margins, the running best t (closest hit) or the first occluding
-    block (any hit) ending the walk, 128 pairs per tested block."""
+    per ray: blocks in order, slab test with the same widened boxes and
+    margins, the running best t (closest hit) or the first occluding
+    block (any hit) ending the walk, 128 pairs per tested block. Also
+    returns the lane-pairs of one thread per ray in lane order, where a
+    32-lane warp runs every block that any of its lanes needs."""
     from fountain_tpu_torch.geometry.tensor_tri import (REL_EPS,
                                                         ray_features)
     from fountain_tpu_torch.geometry.tri_sweep import BLOCK_FACES
@@ -288,6 +304,8 @@ def needed_pairs(table, o, d, t_cap, any_hit, t_eps=1e-4):
     t_run = t_cap.clone()
     done = torch.zeros_like(live)
     count = torch.zeros_like(t_cap, dtype=torch.int64)
+    warp_blocks = 0
+    pad = -t_cap.shape[0] % 32
     for b in range(table.n_blocks):
         bb = table.bounds[b]
         t0 = (bb[0:3] - oa) * inv
@@ -298,9 +316,10 @@ def needed_pairs(table, o, d, t_cap, any_hit, t_eps=1e-4):
         cand = live & ~done & (t_near <= t_far * 1.0001) & (t_far > 0.0) \
             & (t_near * 0.9999 < lim)
         count += cand
-        coef = table.coef[b * BLOCK_FACES:(b + 1) * BLOCK_FACES]
-        q = (rf @ coef.reshape(-1, 10, 4).permute(1, 0, 2).reshape(10, -1)
-             ).reshape(-1, BLOCK_FACES, 4)
+        warp_blocks += int(torch.cat([cand, cand.new_zeros(pad)]).view(
+            -1, 32).any(1).sum())
+        blk = table.feat.packed[:, b * BLOCK_FACES:(b + 1) * BLOCK_FACES]
+        q = (rf @ blk.reshape(10, -1)).reshape(rf.shape[0], -1, 4)
         det, un, vn, tn = q.unbind(-1)
         s = torch.sign(det)
         adet = det.abs()
@@ -315,7 +334,7 @@ def needed_pairs(table, o, d, t_cap, any_hit, t_eps=1e-4):
             t = torch.where(ok, T / torch.where(adet == 0, 1.0, adet),
                             float("inf")).amin(-1)
             t_run = torch.minimum(t_run, t)
-    return int(count.sum()) * BLOCK_FACES
+    return int(count.sum()) * BLOCK_FACES, warp_blocks * 32 * BLOCK_FACES
 
 
 def time_cuda(fn, reps):
@@ -329,6 +348,42 @@ def time_cuda(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_call(name, table, o, d, cap):
+    """A zero-argument call of the library function alone, with its
+    outputs allocated up front; it returns the launch's error code."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    cols = ts._ray_args(table, o, d, cap)
+    n = cap.shape[0]
+    outs = ((torch.empty(n, dtype=torch.bool, device=DEVICE),)
+            if name == "tri_sweep_any" else
+            (torch.empty(n, device=DEVICE),
+             torch.empty(n, dtype=torch.int32, device=DEVICE)))
+    call = functools.partial(getattr(ts._library(), name),
+                             *ts.launch_args(table, cols, 1e-4, outs))
+    call.buffers = (cols, outs)  # alive as long as the call: it holds pointers
+    return call
+
+
+def events_ms(call, reps):
+    """CUDA events around ``reps`` back-to-back launches: ms each."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    errs = [call() for _ in range(reps)]
+    end.record()
+    torch.cuda.synchronize()
+    if any(errs):
+        fail(f"launch failed: {errs}")
+    return start.elapsed_time(end) / reps
+
+
+def kernel_only_ms(name, table, o, d, cap, reps=30):
+    """CUDA events around ``reps`` library calls alone, after a warm-up."""
+    call = kernel_call(name, table, o, d, cap)
+    events_ms(call, 1)
+    return events_ms(call, reps)
 
 
 def phase_kernel_times(scene, captured):
@@ -350,13 +405,15 @@ def phase_kernel_times(scene, captured):
             n = cap.shape[0]
             err = check(any_hit, table, o, d, cap, f"{name} iteration {it}")
             ms = time_cuda(lambda: kern(table, o, d, cap), 20)
+            k_ms = kernel_only_ms(name, table, o, d, cap)
             plain_ms = time_cuda(lambda: plain(table, o, d, cap), 3)
-            pairs = needed_pairs(table, o, d, cap, any_hit)
+            pairs, warp_pairs = needed_pairs(table, o, d, cap, any_hit)
             bytes_ = n * 28 + table_bytes + n * (1 if any_hit else 8)
             t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
             t_ops = pairs * OPS_PER_PAIR / FP32_FLOPS * 1e3
             row = dict(rays=n, live=int((cap > 1e-4).sum()), pairs=pairs,
-                       ms=ms, plain_ms=plain_ms,
+                       warp_pairs=warp_pairs, ms=ms, kernel_ms=k_ms,
+                       plain_ms=plain_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="operations" if t_ops >= t_bytes
                        else "bytes", max_abs_err=err)
@@ -475,7 +532,7 @@ def phase_profile(scene, cam):
     ops = [e for e in events if e not in on_dev]
     if not on_dev:
         log("  device time: not measured (the profiler reported none)")
-        return
+        return {}
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     n_launch = sum(e.count for e in on_dev)
     log(f"  profiled wave: wall {wall_ms:.1f} ms, device busy "
@@ -487,6 +544,32 @@ def phase_profile(scene, cam):
             f"{e.key[:80]}")
     for e in sorted(ops, key=dev_us, reverse=True)[:12]:
         log(f"  op     {dev_us(e) / 1e3:8.2f} ms {e.count:6d}x {e.key[:80]}")
+    sweeps = {}
+    for name, tags in (("tri_sweep_closest", ("sweep_kernel<false>",
+                                              "sweep_kernelILb0")),
+                       ("tri_sweep_any", ("sweep_kernel<true>",
+                                          "sweep_kernelILb1"))):
+        hits = [e for e in on_dev if any(t in e.key for t in tags)]
+        if not hits:
+            log(f"  {name}: device time not measured (not in the trace)")
+            continue
+        total = sum(dev_us(e) for e in hits) / 1e3
+        count = sum(e.count for e in hits)
+        sweeps[name] = dict(device_ms=total, launches=count,
+                            ms_per_launch=total / count)
+        # the wave's launches in order, one device event each
+        each = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                      for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")
+                      and any(t in e.name for t in tags))
+        if len(each) == REGEN_ITERS:
+            sweeps[name].update(it0_ms=each[0][1], it8_ms=each[8][1])
+        log(f"  {name}: {total:.3f} ms device time in {count} launches "
+            f"({total / count:.4f} ms each); iterations 0 and 8: "
+            + (f"{each[0][1]:.4f} and {each[8][1]:.4f} ms"
+               if len(each) == REGEN_ITERS else
+               f"not measured ({len(each)} launch events in the trace)"))
+    return sweeps
 
 
 def main():
@@ -510,6 +593,11 @@ def main():
         f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(ts.NVCC_FLAGS)})")
     for line in ts.build_log.splitlines():
         log("  nvcc: " + line)
+    info = {name: ts.kernel_info(name) for name in ts.KERNELS}
+    for name, facts in info.items():
+        log(f"  {name}: " + json.dumps(facts))
+        if facts["local_bytes"]:
+            fail(f"{name} spills to local memory")
 
     scene, cam = build_scene(RES, DEVICE)
     err_t = phase_parity(scene)
@@ -517,7 +605,7 @@ def main():
     phase_gpu_vs_cpu()
     times = phase_kernel_times(scene, captured)
     phase_ray_order(scene, cam)
-    phase_profile(scene, cam)
+    prof = phase_profile(scene, cam)
 
     kernels = []
     for name, replaces in (
@@ -534,8 +622,13 @@ def main():
                             0.0 if name == "tri_sweep_any" else err_t),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
             bound_by=r8["bound_by"], library_ms=None,
-            it0={k: times[(name, 0)][k] for k in ROW_KEYS},
-            it8={k: r8[k] for k in ROW_KEYS}))
+            kernel_ms=r8["kernel_ms"],
+            profiler_ms_per_launch=prof.get(name, {}).get("ms_per_launch"),
+            build=info[name],
+            it0={k: times[(name, 0)][k] for k in ROW_KEYS}
+            | {"profiler_ms": prof.get(name, {}).get("it0_ms")},
+            it8={k: r8[k] for k in ROW_KEYS}
+            | {"profiler_ms": prof.get(name, {}).get("it8_ms")}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

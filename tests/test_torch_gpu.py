@@ -20,6 +20,51 @@ def _card():
         pytest.skip("needs a CUDA card")
 
 
+# two copies of one triangle at these face indices (leaf order)
+COINCIDENT = {"one_block": (5, 9), "two_blocks": (5, 130)}
+
+
+def coincident_case(where, n_rays=256, seed=0):
+    """200 faces, two of them the same triangle (z = 0, the unit right
+    triangle) at the indices COINCIDENT[where]; the others lie behind it
+    (z < -10). Rays start at z = 5 above the triangle's interior and point
+    down, so each hits both copies at t = 5: the lower index must win."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-10, 10, (200, 3)) + np.array([0.0, 0.0, -20.0])
+    tv = np.stack([v0, v0 + rng.uniform(-1, 1, (200, 3)),
+                   v0 + rng.uniform(-1, 1, (200, 3))], 1)
+    tri = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    for k in COINCIDENT[where]:
+        tv[k] = tri
+    uv = rng.uniform(0.05, 0.45, (n_rays, 2))
+    o = np.concatenate([uv, np.full((n_rays, 1), 5.0)], 1)
+    d = np.tile([0.0, 0.0, -1.0], (n_rays, 1))
+    return (tv.astype(np.float32), o.astype(np.float32),
+            d.astype(np.float32))
+
+
+def shadow_case(n_tris, n_rays, seed, live_share=0.1):
+    """Shadow rays in the main path's own form: unnormalised directions
+    target - o, caps 1 - SHADOW_EPSILON, and about 90% of the lanes dead
+    (cap -1). Returns (faces, o, d, t_max) as numpy arrays."""
+    from fountain_tpu_torch.core.vecmath import SHADOW_EPSILON
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-10, 10, (n_tris, 3))
+    tv = np.stack([v0, v0 + rng.uniform(-1, 1, (n_tris, 3)),
+                   v0 + rng.uniform(-1, 1, (n_tris, 3))], 1)
+    o = rng.uniform(-12, 12, (n_rays, 3))
+    target = rng.uniform(-12, 12, (n_rays, 3))
+    live = rng.uniform(size=n_rays) < live_share
+    t_max = np.where(live, 1.0 - SHADOW_EPSILON, -1.0)
+    return (tv.astype(np.float32), o.astype(np.float32),
+            (target - o).astype(np.float32), t_max.astype(np.float32))
+
+
+def _on_card(a):
+    return V3(*[torch.as_tensor(a[:, k].copy(), device="cuda")
+                for k in range(3)])
+
+
 def _random_case(n_tris, n_rays, seed):
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-10, 10, (n_tris, 3)).astype(np.float32)
@@ -72,3 +117,116 @@ def test_wrapper_refuses_malformed_input():
         ts.closest_hit_kernel(table, V3(o.x.cpu(), o.y, o.z), d, cap)
     with pytest.raises(ValueError):          # table on another device
         ts.closest_hit_kernel(ts.pack_sweep_table(tv, "cpu"), o, d, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", sorted(COINCIDENT))
+def test_coincident_faces_lower_index_on_card(where):
+    """Two copies of one triangle, in one block or in two: the kernel
+    gives the lower face index, as the plain version does."""
+    _card()
+    tv, o, d = coincident_case(where)
+    table = ts.pack_sweep_table(tv, "cuda")
+    cap = torch.full((o.shape[0],), 3e38, device="cuda")
+    t, idx = ts.closest_hit_kernel(table, _on_card(o), _on_card(d), cap)
+    tp, ip = ts.closest_hit_plain(table, _on_card(o), _on_card(d), cap)
+    lo = min(COINCIDENT[where])
+    assert (idx.cpu() == lo).all() and (ip.cpu() == lo).all()
+    np.testing.assert_allclose(t.cpu(), tp.cpu(), rtol=T_RTOL)
+
+
+@pytest.mark.gpu
+def test_shadow_rays_match_plain_on_card():
+    """Shadow rays as the main path casts them, ~90% of lanes dead."""
+    _card()
+    tv, o, d, t_max = shadow_case(300, 4096, 5)
+    table = ts.pack_sweep_table(tv, "cuda")
+    cap = torch.as_tensor(t_max, device="cuda")
+    occ = ts.any_hit_kernel(table, _on_card(o), _on_card(d), cap)
+    occ_p = ts.any_hit_plain(table, _on_card(o), _on_card(d), cap)
+    assert int(occ_p.sum()) > 20
+    np.testing.assert_array_equal(occ.cpu(), occ_p.cpu())
+    assert not occ.cpu()[t_max < 0].any()
+
+
+@pytest.mark.gpu
+def test_large_mesh_matches_plain_on_card():
+    """A mesh of 8,192 + 261 faces (67 blocks, more than one cull window
+    and both staging buffers reused many times) and 20,000 rays."""
+    _card()
+    tv, o, d = _random_case(8192 + 2 * 128 + 5, 20_000, 9)
+    table = ts.pack_sweep_table(tv, "cuda")
+    cap = torch.full((20_000,), 3e38, device="cuda")
+    t, idx = ts.closest_hit_kernel(table, o, d, cap)
+    tp, ip = ts.closest_hit_plain(table, o, d, cap)
+    m = (ip >= 0).cpu()
+    assert m.sum() > 1000
+    np.testing.assert_array_equal((idx >= 0).cpu(), m)
+    np.testing.assert_array_equal(idx.cpu()[m], ip.cpu()[m])
+    np.testing.assert_allclose(t.cpu()[m], tp.cpu()[m], rtol=T_RTOL)
+    half = torch.full((20_000,), 8.0, device="cuda")
+    np.testing.assert_array_equal(
+        ts.any_hit_kernel(table, o, d, half).cpu(),
+        ts.any_hit_plain(table, o, d, half).cpu())
+
+
+def non_finite_rays(n_rays, seed):
+    """Rays of which every fourth has one non-finite origin or direction
+    component (inf, -inf or nan, in turn)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-12, 12, (n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    bad = np.arange(0, n_rays, 4)
+    vals = np.array([np.inf, -np.inf, np.nan], np.float32)
+    for i, r in enumerate(bad):
+        (o if i % 2 else d)[r, i % 3] = vals[i % 3]
+    return o, d, bad
+
+
+@pytest.mark.gpu
+def test_non_finite_rays_miss_on_card():
+    """A ray with a non-finite component hits nothing, in both kernels, as
+    in the plain version (whose dense dots turn it into NaN)."""
+    _card()
+    tv = _random_case(300, 1, 4)[0]
+    o, d, bad = non_finite_rays(1024, 4)
+    table = ts.pack_sweep_table(tv, "cuda")
+    cap = torch.full((1024,), 3e38, device="cuda")
+    t, idx = ts.closest_hit_kernel(table, _on_card(o), _on_card(d), cap)
+    tp, ip = ts.closest_hit_plain(table, _on_card(o), _on_card(d), cap)
+    occ = ts.any_hit_kernel(table, _on_card(o), _on_card(d), cap)
+    assert (ip.cpu()[bad] == -1).all() and (idx.cpu()[bad] == -1).all()
+    assert not occ.cpu()[bad].any()
+    np.testing.assert_array_equal(idx.cpu(), ip.cpu())
+    np.testing.assert_array_equal(
+        occ.cpu(), ts.any_hit_plain(table, _on_card(o), _on_card(d),
+                                    cap).cpu())
+
+
+@pytest.mark.gpu
+def test_chunk_counter_is_zero_after_each_launch():
+    """The launch's last claim clears the stream's chunk counter, so
+    back-to-back launches of other sizes (here more rays than the grid
+    has thread blocks, and fewer) and a launch on another stream all give
+    the plain version's results."""
+    _card()
+    tv, o, d = _random_case(700, 300_000, 11)
+    table = ts.pack_sweep_table(tv, "cuda")
+    cap = torch.full((300_000,), 3e38, device="cuda")
+    tp, ip = ts.closest_hit_plain(table, o, d, cap)
+    side = torch.cuda.Stream()
+    for n in (300_000, 1000, 300_000, 37):
+        sub = V3(*(c[:n] for c in o)), V3(*(c[:n] for c in d))
+        t, idx = ts.closest_hit_kernel(table, *sub, cap[:n])
+        np.testing.assert_array_equal(idx.cpu(), ip[:n].cpu())
+        occ = ts.any_hit_kernel(table, *sub, cap[:n])
+        np.testing.assert_array_equal(occ.cpu(), (ip[:n] >= 0).cpu())
+        stream = torch.cuda.current_stream().cuda_stream
+        assert ts._COUNTERS[(0, stream)].tolist() == [0]
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _, idx_side = ts.closest_hit_kernel(table, *sub, cap[:n])
+        torch.cuda.current_stream().wait_stream(side)
+        np.testing.assert_array_equal(idx_side.cpu(), ip[:n].cpu())
+    assert ts._COUNTERS[(0, side.cuda_stream)].tolist() == [0]

@@ -104,16 +104,32 @@ def test_face_table_layout_and_conservative_bounds():
     table = ts.pack_sweep_table(tv, "cpu")
     packed = np.asarray(build_tri_features(tv).packed)
     np.testing.assert_array_equal(table.feat.packed.numpy(), packed)
-    coef = table.coef.numpy()
-    assert coef.shape == (3 * ts.BLOCK_FACES, ts.COEF_PER_FACE)
-    np.testing.assert_array_equal(
-        coef[:300].reshape(300, 10, 4), packed.transpose(1, 0, 2))
-    assert not coef[300:].any()            # padding faces: det = 0
+    # each face's 16 non-zero coefficients as 4 rows of 4, row-major within
+    # each 128-face block: [block][row][face][4]
+    assert table.coef.shape == (3, 4, ts.BLOCK_FACES, 4)
+    faces = ts.dense_coefficients(table.coef.permute(0, 2, 1, 3).reshape(
+        3 * ts.BLOCK_FACES, ts.COEF_PER_FACE)).numpy()
+    np.testing.assert_array_equal(faces[:, :300], packed)
+    assert not faces[:, 300:].any()        # padding faces: det = 0
     b = table.bounds.numpy()
     for k in range(3):
         blk = tv[k * 128:(k + 1) * 128].reshape(-1, 3)
         assert (b[k, 0:3] < blk.min(0)).all() and (b[k, 3:6] > blk.max(0)
                                                    ).all()
+
+
+def test_face_table_refuses_other_coefficients():
+    """The kernels read only the 16 coefficients that build_tri_features
+    can make non-zero; a table with others raises instead of being
+    swept wrongly."""
+    packed = np.array(build_tri_features(_random_mesh(20, 2)).packed)
+    bad = packed.copy()
+    bad[5, 3, 0] = 1.0                     # det gains a (o x d) term
+    with pytest.raises(ValueError):
+        ts.compact_coefficients(torch.as_tensor(bad))
+    np.testing.assert_array_equal(
+        ts.dense_coefficients(ts.compact_coefficients(
+            torch.as_tensor(packed))).numpy(), packed)
 
 
 def test_sort_keys_match_pallas_morton():
@@ -158,3 +174,63 @@ def test_sweep_refuses_other_devices():
     z = torch.zeros(4, device="meta")
     with pytest.raises(ValueError):
         ts.mt_intersect_kernel(table, V3(z, z, z), V3(z, z, z), z)
+
+
+@pytest.mark.parametrize("where", ["one_block", "two_blocks"])
+def test_coincident_faces_lower_index_wins(where):
+    """Two copies of one triangle, in one 128-face block or in two: the
+    port's plain version and the JAX dense path both give the lower
+    index (the tie rule the kernels keep)."""
+    from tests.test_torch_gpu import COINCIDENT, coincident_case
+    tv, o, d = coincident_case(where)
+    t_max = np.full(o.shape[0], np.inf, np.float32)
+    table = ts.pack_sweep_table(tv, "cpu")
+    tt, ti, tok = ts.mt_intersect_kernel(table, _tv3(o), _tv3(d),
+                                         torch.as_tensor(t_max))
+    jt, ji, jok = map(np.asarray, mt_intersect(
+        build_tri_features(tv), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(t_max)))
+    lo = min(COINCIDENT[where])
+    assert tok.numpy().all() and jok.all()
+    assert (ti.numpy() == lo).all() and (ji == lo).all()
+    np.testing.assert_allclose(tt.numpy(), 5.0, rtol=T_RTOL)
+    np.testing.assert_allclose(tt.numpy(), jt, rtol=T_RTOL)
+
+
+def test_shadow_rays_match_pallas():
+    """Shadow rays in the main path's form (unnormalised target - o,
+    caps 1 - SHADOW_EPSILON, ~90% of lanes dead): the port's any-hit
+    sweep equals the Pallas kernel in interpret mode."""
+    from tests.test_torch_gpu import shadow_case
+    tv, o, d, t_max = shadow_case(jpt.BC + 37, jpt.BN, 5)
+    assert 0.05 < (t_max > 0).mean() < 0.15
+    table = ts.pack_sweep_table(tv, "cpu")
+    _, _, tocc = ts.mt_intersect_kernel(table, _tv3(o), _tv3(d),
+                                        torch.as_tensor(t_max), any_hit=True)
+    _, _, pocc = jpt.mt_intersect_pallas(
+        jpt.pack_features_pallas(tv), _jv3(o), _jv3(d), jnp.asarray(t_max),
+        any_hit=True, interpret=True)
+    tocc = tocc.numpy()
+    assert tocc.sum() > 5 and not tocc[t_max < 0].any()
+    np.testing.assert_array_equal(tocc, np.asarray(pocc))
+
+
+def test_non_finite_rays_miss():
+    """A ray with a non-finite component misses in the port's plain
+    version and in the JAX dense path (the kernels keep this rule)."""
+    from tests.test_torch_gpu import non_finite_rays
+    tv = _random_mesh(300, 1)
+    o, d, bad = non_finite_rays(1024, 4)
+    t_max = np.full(1024, np.inf, np.float32)
+    table = ts.pack_sweep_table(tv, "cpu")
+    _, ti, tok = ts.mt_intersect_kernel(table, _tv3(o), _tv3(d),
+                                        torch.as_tensor(t_max))
+    _, _, tocc = ts.mt_intersect_kernel(table, _tv3(o), _tv3(d),
+                                        torch.as_tensor(t_max), any_hit=True)
+    _, ji, jok = map(np.asarray, mt_intersect(
+        build_tri_features(tv), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(t_max)))
+    assert not tok.numpy()[bad].any() and not jok[bad].any()
+    assert not tocc.numpy()[bad].any()
+    np.testing.assert_array_equal(tok.numpy(), jok)
+    np.testing.assert_array_equal(ti.numpy()[jok], ji[jok])
