@@ -29,7 +29,18 @@ Phases (any failure exits non-zero; no phase is skipped):
      (each sweep call sorts, gathers, sweeps and scatters back);
   7. torch.profiler over one more wave: device-busy time, the ops that
      take it, and each sweep kernel's device time over its 24 launches and
-     at its launches of iterations 0 and 8 (to set beside phase 5).
+     at its launches of iterations 0 and 8 (to set beside phase 5);
+  8. the differentiable step (``fountain_tpu_torch.bench.step``: the
+     wave, then autograd of the mean completed radiance with respect to
+     the texture value table) at full width: one warm-up and 4 timed
+     steps (loss, kd gradient, fwd+bwd rays/s, step times, peak memory,
+     each sweep's launches in a step, split into the forward and backward
+     passes: 24 and 0); central differences of the kd row at full width;
+     card against CPU at 32x32, 12 iterations; the furnace's gradients at
+     64x64 against their analytic values; torch.profiler over one step,
+     with the forward's and the backward's device-busy time and the
+     backward's top device ops; the backward of a gather whose lanes all
+     read one row, as PyTorch runs it and as ``index_add_``.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -76,27 +87,10 @@ def fail(msg):
 
 
 def build_scene(res, device):
-    """BASELINE config 3: rounded_cube.ply (leaf order), matte kd
-    (0.6, 0.5, 0.4), image env light sky.exr; the bench.py camera."""
-    from fountain_tpu_torch.core import transform as tf
-    from fountain_tpu_torch.geometry.bvh import attach_bvh
-    from fountain_tpu_torch.io.exr import read_exr
-    from fountain_tpu_torch.io.ply import load_ply
-    from fountain_tpu_torch.scene.build import SceneBuilder
-    from fountain_tpu_torch.scene.camera import make_perspective_camera
-    mesh = load_ply(os.path.join(ROOT, "data", "rounded_cube.ply"))
-    b = SceneBuilder()
-    env_tex = b.add_image_texture(
-        b.add_image(read_exr(os.path.join(ROOT, "data", "sky.exr"))))
-    mat = b.add_matte(kd=[0.6, 0.5, 0.4])
-    b.add_triangle_mesh(mesh.positions, mesh.indices, normals=mesh.normals,
-                        mat_id=mat)
-    b.add_infinite_light([1.0, 1.0, 1.0], env_tex=env_tex)
-    scene = attach_bvh(b.build(device=device))
-    cam = make_perspective_camera(
-        tf.look_at([25.0, -30.0, 18.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
-        (res, res), fov_deg=45.0)
-    return scene, cam
+    """BASELINE config 3 and the bench.py camera
+    (``fountain_tpu_torch.bench.build_scene``)."""
+    from fountain_tpu_torch.bench import build_scene as build
+    return build(res, device)
 
 
 def v3(a):
@@ -572,6 +566,255 @@ def phase_profile(scene, cam):
     return sweeps
 
 
+def _with_textures(scene, tv):
+    import dataclasses
+    return dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, value=tv))
+
+
+def split_step(scene, cam, res, seed, n_iters=REGEN_ITERS):
+    """``bench.step`` in its two halves, with each sweep's launches in the
+    forward and in the backward pass (counts set to 0 just before the
+    forward). Returns (loss, grad, forward launches, backward launches)."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    ts.reset_launch_counts()
+    loss = bench.loss_of(bench.wave(_with_textures(scene, tv), cam, res,
+                                    seed, n_iters))
+    fwd = dict(ts.launch_counts)
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd = {k: ts.launch_counts[k] - fwd[k] for k in fwd}
+    return loss.detach(), tv.grad, fwd, bwd
+
+
+def _furnace_grads(res, device, spp=4):
+    """test_grad.py's analytic furnace gates on ``device``: d/d(albedo)
+    of the mean image against the depth-12 truncated series, and
+    d/d(emit) against 1 / (1 - rho) = 2."""
+    import dataclasses
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    rho = 0.5
+    b = SceneBuilder()
+    mat = b.add_matte(kd=[rho] * 3)
+    sph = b.add_sphere(radius=100.0, mat_id=mat, reverse_orientation=True)
+    b.add_area_light_sphere(sph, [1.0] * 3)
+    scene = b.build(device=device)
+    cam = make_perspective_camera(
+        tf.look_at([0.0, -2.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=60.0)
+    tv = scene.textures.value.clone().requires_grad_(True)
+    img = render(_with_textures(scene, tv), cam, res, res, spp,
+                 PathConfig(max_depth=12, rr_threshold=0.0, nee=True))
+    (g_alb,) = torch.autograd.grad(img.mean(), tv)
+    emit = torch.tensor(1.0, device=device, requires_grad=True)
+    s = dataclasses.replace(scene, lights=dataclasses.replace(
+        scene.lights, emit=torch.ones_like(scene.lights.emit) * emit))
+    img_e = render(s, cam, res, res, spp,
+                   PathConfig(max_depth=16, rr_threshold=0.0, nee=True))
+    (g_emit,) = torch.autograd.grad(img_e.mean(), emit)
+    analytic = sum(k * rho ** (k - 1) for k in range(1, 14))
+    return (float(img.detach().mean()), float(g_alb.sum()), analytic,
+            float(img_e.detach().mean()), float(g_emit))
+
+
+def _busy(events):
+    """Summed duration (ms) of device events, and their count."""
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def profile_step(scene, cam, seed=7):
+    """torch.profiler over one step, the forward and the backward pass
+    each in a profile of its own (each ends in a synchronize): their
+    device-busy ms against their host-clock times, the backward's top 8
+    device ops, and the device time of the gathers' backward kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from fountain_tpu_torch import bench
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as p_fwd:
+        t0 = time.perf_counter()
+        loss = bench.loss_of(bench.wave(_with_textures(scene, tv), cam, RES,
+                                        seed))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    with profile(activities=acts) as p_bwd:
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    out = {}
+    dev = {}
+    for half, prof, wall in (("fwd", p_fwd, t1 - t0), ("bwd", p_bwd,
+                                                       t2 - t1)):
+        dev[half] = [e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")]
+        busy = sum(e.time_range.elapsed_us() for e in dev[half]) / 1e3
+        out.update({f"{half}_busy_ms": busy, f"{half}_wall_ms": wall * 1e3,
+                    f"{half}_share": busy / (wall * 1e3),
+                    f"{half}_device_calls": len(dev[half])})
+    if not dev["fwd"] or not dev["bwd"]:
+        log("  device time: not measured (the profiler reported none)")
+        return {}
+    log("  profiled step (the profiler slows the host, so the shares are "
+        "lower bounds): " + json.dumps(out))
+    by_name = {}
+    for e in dev["bwd"]:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (ms, count) in top:
+        log(f"  backward device {ms:8.2f} ms {count:6d}x {name[:80]}")
+    out["bwd_top"] = [dict(name=n[:120], ms=ms, count=c)
+                      for n, (ms, c) in top]
+    # the backward of a gather whose lanes all read one row: the [N, 96]
+    # shading rows (one a iteration; float rows of 96, vectorized by 4)
+    # and the env texture's [N, 3] value rows (small stride)
+    for tag in ("indexing_backward_kernel<float, 4>",
+                "indexing_backward_kernel_small_stride"):
+        hits = [(n, v) for n, v in by_name.items() if tag in n]
+        ms, count = (sum(v[0] for _, v in hits), sum(v[1] for _, v in hits))
+        out[tag] = dict(device_ms=ms, calls=count)
+        log(f"  backward {tag}: {ms:.2f} ms device time in {count} calls")
+    return out
+
+
+def index_backward_ms(n, reps=5):
+    """The backward of a gather whose n lanes all read one row of a small
+    table, as the step's gathers do: what ``table[idx]``'s backward runs
+    (an accumulating ``index_put_``) against ``index_add_`` (the backward
+    of ``index_select``), CUDA events, ms a call, for the [1, 96] shading
+    table and a [4, 3] texture value table; the two results must agree."""
+    out = {}
+    for rows, width in ((1, 96), (4, 3)):
+        idx = torch.full((n,), rows - 1, dtype=torch.long, device=DEVICE)
+        grad = torch.rand(n, width, device=DEVICE)
+        put = torch.zeros(rows, width, device=DEVICE)
+        add = torch.zeros(rows, width, device=DEVICE)
+        put_ms = time_cuda(
+            lambda: put.index_put_((idx,), grad, accumulate=True), reps)
+        add_ms = time_cuda(lambda: add.index_add_(0, idx, grad), reps)
+        if not torch.allclose(put, add, rtol=1e-4):
+            fail("index_put_ and index_add_ sums differ")
+        out[f"{rows}x{width}"] = dict(index_put_ms=put_ms,
+                                      index_add_ms=add_ms)
+    log(f"  gather backward over {n} lanes reading one row: "
+        + json.dumps(out))
+    return out
+
+
+def phase_step(scene, cam, n_timed=4):
+    """The differentiable step at full width; fails on any gate."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    log(f"phase 8: the differentiable step, {RES}x{RES}, depth {MAX_DEPTH},"
+        f" {REGEN_ITERS} iterations, NEE (fwd + autograd bwd w.r.t. the "
+        "texture value table)")
+    kd_row = int(scene.materials.kd_tex[0])
+    tv = scene.textures.value
+    rays = bench.count_rays(scene, cam, RES, 0)
+    bench.step(scene, cam, RES, tv, 0)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    times = []
+    for i in range(n_timed):
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grad = bench.step(scene, cam, RES, tv, i + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step = dict(ts.launch_counts)
+        if any(c != REGEN_ITERS for c in per_step.values()):
+            fail(f"a step launched the sweeps {per_step} times, expected "
+                 f"{REGEN_ITERS} each")
+    peak = torch.cuda.max_memory_allocated()
+    loss_s, grad_s, fwd, bwd = split_step(scene, cam, RES, n_timed)
+    if any(c != REGEN_ITERS for c in fwd.values()) or any(bwd.values()):
+        fail(f"sweep launches: forward {fwd}, backward {bwd}; expected "
+             f"{REGEN_ITERS} and 0")
+    g = grad[kd_row]
+    out = dict(rays_per_wave=rays, step_s=times,
+               median_step_s=float(np.median(times)),
+               rays_per_s_fwd_bwd=n_timed * rays / sum(times),
+               loss=float(loss), kd_grad=g.tolist(),
+               max_memory_allocated=peak,
+               memory_allocated_before=base_mem,
+               launches_per_step=per_step, launches_fwd=fwd,
+               launches_bwd=bwd)
+    log("  " + json.dumps(out))
+    if not (bool(torch.isfinite(grad).all()) and bool((g != 0).all())):
+        fail("the kd gradient is not finite and non-zero")
+    nz = grad != 0
+    if not torch.equal(nz, grad_s != 0) or bool(
+            (grad[nz] - grad_s[nz]).abs().gt(
+                1e-3 * grad[nz].abs()).any()):
+        fail("the split step's gradient differs from bench.step's")
+
+    # central differences at full width, the last timed step's seed
+    h = 1e-3
+    seed = n_timed
+
+    def loss_at(t):
+        with torch.no_grad():
+            return float(bench.loss_of(bench.wave(_with_textures(scene, t),
+                                                  cam, RES, seed)))
+    bump = torch.zeros_like(tv)
+    bump[kd_row] = h
+    fd = (loss_at(tv + bump) - loss_at(tv - bump)) / (2 * h)
+    g_sum = float(g.sum())
+    rel = abs(g_sum - fd) / abs(fd)
+    log(f"  central difference (h = {h}) of the kd row, summed over "
+        f"channels: fd={fd:.7f} grad={g_sum:.7f} rel={rel:.3e} "
+        "(gate rtol 5e-3)")
+    if rel > 5e-3:
+        fail("the full-width gradient disagrees with central differences")
+    out.update(fd=fd, fd_rel=rel)
+
+    # card against CPU at 32x32, 12 iterations
+    res, iters = 32, 12
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        sc, cm = build_scene(res, dev)
+        got[dev] = bench.step(sc, cm, res, sc.textures.value, 0,
+                              n_iters=iters)
+    (lg, gg), (lc, gc) = got[DEVICE], got["cpu"]
+    gg = gg.cpu()
+    rel_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+    nzc = gc != 0
+    rel_g = float(((gg - gc).abs()[nzc] / gc.abs()[nzc]).max())
+    log(f"  card vs CPU at {res}x{res}, {iters} iterations: loss "
+        f"{float(lg):.7f} / {float(lc):.7f} (rel {rel_loss:.3e}); largest "
+        f"relative gradient difference {rel_g:.3e} over "
+        f"{int(nzc.sum())} non-zero channels (gates rel 1e-3)")
+    if rel_loss > 1e-3 or rel_g > 1e-3 or not torch.equal(gg != 0, nzc):
+        fail("card and CPU steps disagree")
+    out.update(card_vs_cpu_loss_rel=rel_loss, card_vs_cpu_grad_rel=rel_g)
+
+    # the furnace's gradients on the card
+    res = 64
+    img_a, g_alb, analytic, img_e, g_emit = _furnace_grads(res, DEVICE)
+    rel_a = abs(g_alb - analytic) / analytic
+    rel_e = abs(g_emit - 2.0) / 2.0
+    log(f"  furnace {res}x{res}, 4 spp: mean {img_a:.5f} (depth 12), "
+        f"d/d(albedo) {g_alb:.5f} vs truncated series {analytic:.5f} (rel "
+        f"{rel_a:.3e}, gate 0.05); mean {img_e:.5f} (depth 16), d/d(emit) "
+        f"{g_emit:.5f} vs 2 (rel {rel_e:.3e}, gate 0.02)")
+    if rel_a > 0.05 or rel_e > 0.02:
+        fail("furnace gradients off their analytic values")
+    out.update(furnace_albedo_grad=g_alb, furnace_emit_grad=g_emit)
+
+    log("  torch.profiler over one step")
+    out["profile"] = profile_step(scene, cam)
+    out["index_backward"] = index_backward_ms(RES * RES)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -606,6 +849,7 @@ def main():
     times = phase_kernel_times(scene, captured)
     phase_ray_order(scene, cam)
     prof = phase_profile(scene, cam)
+    step = phase_step(scene, cam)
 
     kernels = []
     for name, replaces in (
@@ -618,6 +862,7 @@ def main():
             name=name, route="cuda",
             source="fountain_tpu_torch/csrc/tri_sweep.cu",
             replaces=replaces, launches=wave["launches"][name],
+            launches_per_step=step["launches_per_step"][name],
             max_abs_err=max(r8["max_abs_err"], times[(name, 0)]["max_abs_err"],
                             0.0 if name == "tri_sweep_any" else err_t),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],

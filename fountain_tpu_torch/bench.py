@@ -1,0 +1,175 @@
+"""The differentiable step of BASELINE config 3 and its fwd+bwd rays/s.
+
+Counterpart of the repository's root ``bench.py``: rounded_cube.ply (LBVH
+leaf order) with a matte material under the image-mapped env light
+sky.exr. One step traces a path-regeneration wave (512x512 lanes, depth 5,
+NEE, Russian roulette, 24 iterations; ``--no-regen``: the fixed wave) and
+takes the gradient of the mean completed radiance with respect to the
+texture value table, with autograd. Rays are counted as the root bench
+counts them: one closest-hit ray per live lane per iteration plus one
+shadow ray per NEE lane.
+
+    python -m fountain_tpu_torch.bench [--res N] [--steps N] [--cpu]
+                                       [--no-regen]
+
+runs on the CUDA card (and raises without one) unless ``--cpu`` is given,
+and prints one JSON line {"metric": "rays_per_s_fwd_bwd", "value": ...,
+"unit": "rays/s", "vs_baseline": ...}, with a ``#`` line of details on
+stderr.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from fountain_tpu_torch.core import rng
+from fountain_tpu_torch.device import resolve_device
+from fountain_tpu_torch.integrator.path import (DIM_CAMERA, PathConfig,
+                                                trace_paths)
+from fountain_tpu_torch.scene.camera import generate_rays
+
+# the root bench.py's estimate of a CPU path tracer on the same workload
+CPU_BASELINE_RAYS_PER_S = 3.0e6
+RES = 512
+MAX_DEPTH = 5
+N_TIMED = 16
+REGEN_ITERS = 24
+CPU_RES = 32
+CPU_N_TIMED = 2
+DATA = Path(__file__).resolve().parents[1] / "data"
+CFG = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+
+
+def build_scene(res: int, device=None):
+    """BASELINE config 3 and the root bench's camera ((25, -30, 18) looking
+    at the origin, 45 degree fov) at res x res; on ``device`` (default
+    cuda)."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.geometry.bvh import attach_bvh
+    from fountain_tpu_torch.io.exr import read_exr
+    from fountain_tpu_torch.io.ply import load_ply
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    mesh = load_ply(DATA / "rounded_cube.ply")
+    b = SceneBuilder()
+    env_tex = b.add_image_texture(b.add_image(read_exr(DATA / "sky.exr")))
+    mat = b.add_matte(kd=[0.6, 0.5, 0.4])
+    b.add_triangle_mesh(mesh.positions, mesh.indices, normals=mesh.normals,
+                        mat_id=mat)
+    b.add_infinite_light([1.0, 1.0, 1.0], env_tex=env_tex)
+    scene = attach_bvh(b.build(device=device))
+    cam = make_perspective_camera(
+        tf.look_at([25.0, -30.0, 18.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=45.0)
+    return scene, cam
+
+
+def make_ray_fn(cam, res: int, seed):
+    """``ray_fn(lane, sample) -> (o, d, spread)``: jittered camera rays of
+    pixel lanes (row-major) with zero ray-cone spread, as the root bench
+    traces them."""
+    def ray_fn(lane, sample):
+        px = (lane % res).to(torch.float32)
+        py = torch.div(lane, res, rounding_mode="floor").to(torch.float32)
+        u = rng.uniform4(lane, sample, DIM_CAMERA, seed)
+        rays = generate_rays(cam, px + u[0], py + u[1], u[2], u[3])
+        return rays.o, rays.d, torch.zeros_like(px)
+    return ray_fn
+
+
+def wave(scene, cam, res: int, seed, n_iters: int = REGEN_ITERS,
+         regen: bool = True, count_rays: bool = False):
+    """One wave of the step's forward pass: a RegenResult, or with
+    ``regen=False`` the fixed wave's radiance (and n_rays)."""
+    n = res * res
+    lane = torch.arange(n, dtype=torch.int32, device=scene.device)
+    sample = torch.zeros(n, dtype=torch.int32, device=scene.device)
+    ray_fn = make_ray_fn(cam, res, seed)
+    o, d, _ = ray_fn(lane, sample)
+    return trace_paths(scene, o, d, lane, sample, CFG, seed=seed,
+                       count_rays=count_rays,
+                       regen_fn=ray_fn if regen else None, n_iters=n_iters)
+
+
+def count_rays(scene, cam, res: int, seed=0, n_iters: int = REGEN_ITERS,
+               regen: bool = True) -> int:
+    """Rays one wave traces (forward accounting, no autograd)."""
+    with torch.no_grad():
+        out = wave(scene, cam, res, seed, n_iters, regen, count_rays=True)
+    return int(out.n_rays if regen else out[1])
+
+
+def loss_of(out, regen: bool = True) -> torch.Tensor:
+    """The bench loss: mean completed radiance over lanes and channels
+    (the regeneration wave divides by the completed samples)."""
+    if regen:
+        total = (out.accum.x + out.accum.y + out.accum.z).sum()
+        return total / (3.0 * out.n_done.sum().clamp_min(1).to(
+            torch.float32))
+    return (out.x + out.y + out.z).mean() / 3.0
+
+
+def step(scene, cam, res: int, tex_value: torch.Tensor, seed,
+         n_iters: int = REGEN_ITERS, regen: bool = True):
+    """One differentiable step: (loss, d loss / d tex_value). The scene is
+    not changed: a leaf copy of ``tex_value`` replaces its texture
+    values."""
+    tv = tex_value.detach().clone().requires_grad_(True)
+    s = dataclasses.replace(
+        scene, textures=dataclasses.replace(scene.textures, value=tv))
+    loss = loss_of(wave(s, cam, res, seed, n_iters, regen), regen)
+    loss.backward()
+    return loss.detach(), tv.grad
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", action="store_true",
+                    help="run the plain PyTorch path on the CPU")
+    ap.add_argument("--res", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--no-regen", action="store_true",
+                    help="the fixed wave instead of path regeneration")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cpu" if args.cpu else None)
+    res = args.res or (CPU_RES if args.cpu else RES)
+    n_timed = args.steps or (CPU_N_TIMED if args.cpu else N_TIMED)
+    regen = not args.no_regen
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    scene, cam = build_scene(res, dev)
+    rays_per_wave = count_rays(scene, cam, res, 0, regen=regen)
+    tv = scene.textures.value
+    step(scene, cam, res, tv, 0, regen=regen)                # warm-up
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        loss, _ = step(scene, cam, res, tv, i + 1, regen=regen)
+    sync()
+    dt = time.perf_counter() - t0
+
+    rays_per_s = n_timed * rays_per_wave / dt
+    occupancy = rays_per_wave / (res * res * (REGEN_ITERS if regen
+                                              else MAX_DEPTH + 1))
+    print(json.dumps({
+        "metric": "rays_per_s_fwd_bwd",
+        "value": round(rays_per_s, 1),
+        "unit": "rays/s",
+        "vs_baseline": round(rays_per_s / CPU_BASELINE_RAYS_PER_S, 3),
+    }), flush=True)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"# device={name} res={res} depth={MAX_DEPTH} "
+          f"rays/wave={rays_per_wave} steps={n_timed} dt={dt:.3f}s "
+          f"loss={float(loss):.5f} lane_occupancy={occupancy:.3f}",
+          file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,14 @@
 """4x4 affine transforms with cached inverses (PyTorch, host-side).
 
 Counterpart of the parts of ``fountain_tpu/core/transform.py`` that the
-camera uses. Matrices are small f32 CPU tensors built with the same f32
-operation order as the JAX package; inverses are taken in float64 on the
-host. Applying a shared matrix to a wavefront reads its 16 entries as
-Python floats (exact for f32 values), so the per-lane work is 9-12 fused
-multiply-adds on whatever device the vectors live.
+camera and the sphere tables use. Camera matrices are small f32 CPU
+tensors built with the same f32 operation order as the JAX package;
+inverses are taken in float64 on the host. Applying a shared matrix to a
+wavefront reads its 16 entries as Python floats (exact for f32 values),
+so the per-lane work is 9-12 fused multiply-adds on whatever device the
+vectors live. Per-sphere or per-lane matrices ([..., 4, 4] on the
+device) apply to [..., 3] arrays with broadcasting (``transform_points``
+and its siblings), as the JAX package's batched transforms do.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fountain_tpu_torch.core.vecmath import V3
+from fountain_tpu_torch.core.vecmath import V3, gamma
 
 Float = torch.float32
 
@@ -115,3 +118,40 @@ def transform_vector_v3(t: Transform, v: V3) -> V3:
     return V3(m[0][0] * v.x + m[0][1] * v.y + m[0][2] * v.z,
               m[1][0] * v.x + m[1][1] * v.y + m[1][2] * v.z,
               m[2][0] * v.x + m[2][1] * v.y + m[2][2] * v.z)
+
+
+# --- batched matrices ([..., 4, 4], broadcast against [..., 3] arrays) ----
+
+
+def _apply(m: torch.Tensor, v: torch.Tensor, w: float) -> torch.Tensor:
+    """The affine part of m applied to [..., 3] with homogeneous coord w."""
+    out = (m[..., :3, :3] * v[..., None, :]).sum(-1)
+    if w != 0.0:
+        out = out + m[..., :3, 3]
+        hw = (m[..., 3, :3] * v).sum(-1) + m[..., 3, 3]
+        out = out / torch.where(hw == 0.0, 1.0, hw)[..., None]
+    return out
+
+
+def transform_points(t: Transform, p: torch.Tensor) -> torch.Tensor:
+    return _apply(t.m, p, 1.0)
+
+
+def transform_vectors(t: Transform, v: torch.Tensor) -> torch.Tensor:
+    return _apply(t.m, v, 0.0)
+
+
+def transform_normals(t: Transform, n: torch.Tensor) -> torch.Tensor:
+    """Normals transform by the inverse transpose."""
+    return (t.m_inv[..., :3, :3].transpose(-1, -2) * n[..., None, :]).sum(-1)
+
+
+def transform_points_with_input_error(t: Transform, p: torch.Tensor,
+                                      p_err: torch.Tensor):
+    """Transformed points with their propagated absolute error."""
+    pt = transform_points(t, p)
+    abs_m = t.m[..., :3, :].abs()
+    err_in = (gamma(3) + 1.0) * (abs_m[..., :3] * p_err[..., None, :]).sum(-1)
+    abs_term = (abs_m[..., :3] * p.abs()[..., None, :]).sum(-1) \
+        + abs_m[..., 3]
+    return pt, err_in + gamma(3) * abs_term

@@ -338,8 +338,12 @@ def mt_intersect_kernel(table: SweepTable, o: V3, d: V3, t_max,
     a miss is (t=inf, idx=0, found=False), and in any-hit mode only the
     boolean is meaningful.
     Rays on the CPU take the plain version; rays on a CUDA device launch
-    the kernel.
+    the kernel. The rays are detached on both branches: a sweep carries no
+    gradient (as ``mt_intersect_pallas`` detaches its inputs).
     """
+    o = V3(o.x.detach(), o.y.detach(), o.z.detach())
+    d = V3(d.x.detach(), d.y.detach(), d.z.detach())
+    t_max = t_max.detach()
     t_cap = torch.where(torch.isfinite(t_max), t_max,
                         torch.full_like(t_max, 3e38))
     if t_cap.device.type == "cpu":

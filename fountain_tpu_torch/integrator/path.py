@@ -1,23 +1,29 @@
 """Wavefront unidirectional path integrator with NEE + MIS (PyTorch).
 
 Counterpart of ``fountain_tpu/integrator/path.py`` in ``mode="path"``
-with NEE, under path regeneration: the whole wavefront of lanes advances
-together through a bounce loop with an ``active`` mask; NEE picks one
-light per bounce and traces one shadow ray (the light-sampling branch),
-and its MIS partner is the next bounce's emission gather, weighted by the
-power heuristic against the continuation ray's BSDF pdf; Russian roulette
-after 3 bounces; every random number is a counter hash of (lane, sample,
-bounce, slot).
+with NEE: the whole wavefront of lanes advances together through a bounce
+loop with an ``active`` mask; NEE picks one light per bounce and traces
+one shadow ray (the light-sampling branch), and its MIS partner is the
+next bounce's emission gather, weighted by the power heuristic against
+the continuation ray's BSDF pdf; Russian roulette after 3 bounces; every
+random number is a counter hash of (lane, sample, bounce, slot).
 
-Path regeneration (``regen_fn`` + ``n_iters``; the fixed wave of
-``render_wave`` is not ported yet): a lane whose path ends during the
-first ``n_iters - (max_depth + 1)`` iterations starts its pixel's next
-sample; the remaining iterations drain the paths in flight, so every
-started path completes. The loop is a Python loop over
-``n_iters``; per-lane ``depth`` is the bounce index.
+Two waves, both Python loops: the fixed wave (``regen_fn=None``) traces
+one path per lane through ``max_depth + 1`` bounces and returns its
+radiance; path regeneration (``regen_fn`` + ``n_iters``) lets a lane
+whose path ends during the first ``n_iters - (max_depth + 1)`` iterations
+start its pixel's next sample, and the remaining iterations drain the
+paths in flight, so every started path completes; per-lane ``depth`` is
+the bounce index.
 
-Sampled directions and discrete choices are detached (the detached-
-sampling estimator), as in the JAX package.
+Gradients: the detached-sampling estimator, as in the JAX package.
+Sampled directions and discrete choices are detached, and so is the
+geometric carry (origins, directions, cone width, previous pdf) on entry
+to every iteration, so the autograd graph never reaches back into sampled
+positions; gradients flow through f * L * cos / pdf into the material,
+texture and emitter tables. The sweeps carry no gradient and the backward
+pass never launches them. Attached sampling (``detach_sampling=False``)
+is not ported.
 
 Known deviation from fountain, kept from the JAX package: a lane hitting a
 null-BSDF material passes through but consumes a bounce.
@@ -123,7 +129,8 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
 def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
             count_rays: bool) -> None:
     """Advance every lane by one bounce, in place on ``st``. ``bounce`` is
-    the per-lane bounce index (int tensor)."""
+    the bounce index: an int for the fixed wave, a per-lane int tensor
+    under regeneration."""
     n_lights = scene.lights.count
     ro, rd = st.o, st.d
     t_max = torch.where(st.active, float("inf"), -1.0)
@@ -218,21 +225,36 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     st.active = alive
 
 
+def _detach_geometry(st: _Lanes) -> None:
+    """Detach the geometric carry on entry to an iteration, as the JAX
+    package's loop bodies do (``_geo``: origins, directions, cone width,
+    previous pdf)."""
+    st.o = V3(st.o.x.detach(), st.o.y.detach(), st.o.z.detach())
+    st.d = V3(st.d.x.detach(), st.d.y.detach(), st.d.z.detach())
+    st.cone_width = st.cone_width.detach()
+    st.prev_pdf = st.prev_pdf.detach()
+
+
 def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
-                seed=0, count_rays: bool = False,
+                seed=0, detach_sampling: bool = True,
+                count_rays: bool = False, cone_spread=None,
                 regen_fn: Optional[Callable] = None,
-                n_iters: Optional[int] = None) -> RegenResult:
-    """Trace a path-regeneration wave, one camera path per lane at a time.
+                n_iters: Optional[int] = None):
+    """Trace one camera path per lane.
 
     o, d: camera rays (V3 of flat [N]); lane/sample: int tensors [N]
-    feeding the counter RNG; ``regen_fn(lane, sample) -> (o, d, spread)``
-    makes the rays of a lane's next sample. With count_rays=True the
-    result carries n_rays: one closest-hit ray per active lane per
-    iteration plus one shadow ray per NEE lane.
+    feeding the counter RNG; ``cone_spread`` [N] (optional): the rays'
+    ray-cone spread. Without ``regen_fn`` this is the fixed wave: returns
+    the radiance V3, or (radiance, n_rays) with count_rays=True. With
+    ``regen_fn(lane, sample) -> (o, d, spread)`` (the rays of a lane's
+    next sample) it is a regeneration wave of ``n_iters`` iterations and
+    returns a RegenResult. n_rays counts one closest-hit ray per active
+    lane per iteration plus one shadow ray per NEE lane.
     """
-    if regen_fn is None:
+    if not detach_sampling:
         raise NotImplementedError(
-            "the fixed wave (regen_fn=None) is not ported yet")
+            "attached sampling (detach_sampling=False) needs the GGX "
+            "sampler of config 4, which is not ported yet")
     if cfg.mode != "path" or not cfg.nee or cfg.emit_all_bounces:
         raise NotImplementedError(
             "only mode='path' with nee=True is ported yet")
@@ -248,8 +270,15 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
         lane=torch.as_tensor(lane, dtype=torch.int32, device=dev).expand(n),
         sample=torch.as_tensor(sample, dtype=torch.int32,
                                device=dev).expand(n),
-        spread=torch.zeros(n, dtype=torch.float32, device=dev),
+        spread=torch.zeros(n, dtype=torch.float32, device=dev)
+        if cone_spread is None else cone_spread.expand(n),
         n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+    if regen_fn is None:
+        for b in range(cfg.max_depth + 1):
+            _detach_geometry(st)
+            _bounce(scene, st, b, cfg, seed, count_rays)
+        return (st.radiance, st.n_rays) if count_rays else st.radiance
 
     k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
     # refill window: paths started before it have max_depth+1 iterations
@@ -259,6 +288,7 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     accum = zeros3(n, dev)
     n_done = torch.zeros(n, dtype=torch.int32, device=dev)
     for it in range(k_iters):
+        _detach_geometry(st)
         was = st.active
         _bounce(scene, st, depth, cfg, seed, count_rays)
         finished = was & ~st.active

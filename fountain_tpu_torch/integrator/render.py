@@ -1,8 +1,12 @@
-"""Render entry point: one path-regeneration wave into a film (PyTorch).
+"""Render driver: camera -> wavefront trace -> film (PyTorch).
 
-Counterpart of ``render_regen`` in ``fountain_tpu/integrator/render.py``.
-Every random number depends only on (pixel lane, sample index), so the
-image is independent of batching.
+Counterpart of ``fountain_tpu/integrator/render.py``: ``render_wave``
+traces one sample per pixel (the fixed wave), ``render_samples``
+accumulates a range of samples into a film (a Python loop over samples),
+``render`` is the whole image, and ``render_regen`` is one
+path-regeneration wave. Every random number depends only on (pixel lane,
+sample index), so the image is independent of batching, and rendering
+samples [0, 4) then [4, 8) equals [0, 8) in one call.
 """
 from __future__ import annotations
 
@@ -13,8 +17,63 @@ from fountain_tpu_torch.core.vecmath import length
 from fountain_tpu_torch.integrator.path import (DIM_CAMERA, PathConfig,
                                                 trace_paths)
 from fountain_tpu_torch.scene.camera import PerspectiveCamera, generate_rays
-from fountain_tpu_torch.scene.film import Film
+from fountain_tpu_torch.scene.film import (FILTER_BOX, Film,
+                                           add_samples_aligned, finalize,
+                                           make_film)
 from fountain_tpu_torch.scene.types import Scene
+
+
+def render_wave(scene: Scene, camera: PerspectiveCamera, xres: int,
+                yres: int, sample_idx: int, cfg: PathConfig, seed=0,
+                detach_sampling: bool = True, diff_scale: float = 1.0):
+    """Trace one sample-per-pixel wave; returns (frac_x, frac_y, L): the
+    in-pixel jitter [N] in [0, 1)^2 and the radiance V3 of [N], lane i
+    being pixel i in row-major order. ``diff_scale`` scales the
+    texture-filter ray-cone spread."""
+    n_lanes = xres * yres
+    lane = torch.arange(n_lanes, dtype=torch.int32, device=scene.device)
+    px = (lane % xres).to(torch.float32)
+    py = torch.div(lane, xres, rounding_mode="floor").to(torch.float32)
+    u = rng.uniform4(lane, sample_idx, DIM_CAMERA, seed)
+    rays = generate_rays(camera, px + u[0], py + u[1], u[2], u[3])
+    spread = torch.maximum(length(rays.rx_d - rays.d),
+                           length(rays.ry_d - rays.d)) * diff_scale
+    sample = torch.full((n_lanes,), sample_idx, dtype=torch.int32,
+                        device=scene.device)
+    radiance = trace_paths(scene, rays.o, rays.d, lane, sample, cfg,
+                           seed=seed, detach_sampling=detach_sampling,
+                           cone_spread=spread)
+    return u[0], u[1], radiance
+
+
+def render_samples(scene: Scene, camera: PerspectiveCamera, xres: int,
+                   yres: int, s_begin: int, s_end: int, spp_total: int,
+                   film: Film, cfg: PathConfig = PathConfig(),
+                   ftype: int = FILTER_BOX, fradius: float = 0.5, seed=0,
+                   detach_sampling: bool = True) -> Film:
+    """Accumulate samples [s_begin, s_end) into ``film`` and return it.
+    ``spp_total`` only scales the ray-cone spread and must be held fixed
+    across a resumed run."""
+    for s in range(s_begin, s_end):
+        fx, fy, radiance = render_wave(
+            scene, camera, xres, yres, s, cfg, seed=seed,
+            detach_sampling=detach_sampling,
+            diff_scale=1.0 / max(spp_total, 1) ** 0.5)
+        film = add_samples_aligned(film, fx, fy, radiance, ftype=ftype,
+                                   radius=fradius)
+    return film
+
+
+def render(scene: Scene, camera: PerspectiveCamera, xres: int, yres: int,
+           spp: int, cfg: PathConfig = PathConfig(),
+           ftype: int = FILTER_BOX, fradius: float = 0.5, seed=0,
+           detach_sampling: bool = True) -> torch.Tensor:
+    """The image [yres, xres, 3] with ``spp`` samples per pixel, on the
+    scene's device."""
+    film = render_samples(scene, camera, xres, yres, 0, spp, spp,
+                          make_film(xres, yres, scene.device), cfg, ftype,
+                          fradius, seed, detach_sampling=detach_sampling)
+    return finalize(film)
 
 
 def make_ray_fn(camera: PerspectiveCamera, xres: int, seed,

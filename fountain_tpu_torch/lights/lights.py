@@ -1,11 +1,12 @@
 """Light emission, sampling and pdf queries (PyTorch).
 
-Counterpart of the parts of ``fountain_tpu/lights/lights.py`` that an
-env-lit scene reaches: area emission at hits, the environment radiance of
-escaped rays, and the infinite-light branches (uniform sphere, or the
-per-light env-map alias table) of ``sample_light`` and ``light_pdf``.
-Point, distant and area lights are not ported yet; scenes that use them
-are refused at setup (``scene.build``).
+Counterpart of the parts of ``fountain_tpu/lights/lights.py`` that
+config 3 and the furnace reach: area emission at hits, the environment
+radiance of escaped rays, and the infinite-light (uniform sphere, or the
+per-light env-map alias table) and sphere-area-light branches of
+``sample_light`` and ``light_pdf``. The emission table ``lights.emit``
+stays differentiable. Point, distant and mesh area lights are not ported
+yet; scenes that use them are refused at setup (``scene.build``).
 """
 from __future__ import annotations
 
@@ -13,14 +14,17 @@ from dataclasses import dataclass
 
 import torch
 
+from fountain_tpu_torch.core import transform as tf
 from fountain_tpu_torch.core.sampling import (pdf_env_alias,
                                               sample_env_alias,
                                               uniform_sample_sphere)
-from fountain_tpu_torch.core.vecmath import (PI, V3, dot, normalize, where3,
-                                             zeros3)
-from fountain_tpu_torch.geometry.intersect import Hit
-from fountain_tpu_torch.scene.types import (LIGHT_DISTANT, LIGHT_INFINITE,
-                                            LIGHT_POINT, Scene)
+from fountain_tpu_torch.core.vecmath import (PI, V3, dot, gamma, length,
+                                             normalize, where3, zeros3)
+from fountain_tpu_torch.geometry.intersect import (Hit, _sphere_candidates,
+                                                   _v3)
+from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE, LIGHT_DISTANT,
+                                            LIGHT_INFINITE, LIGHT_POINT,
+                                            Scene, Spheres)
 
 INV_2PI = 1.0 / (2.0 * PI)
 INV_PI = 1.0 / PI
@@ -101,10 +105,27 @@ def environment_light_radiance(scene: Scene, i: int, d: V3) -> V3:
     return where3(lt.ltype[i] == LIGHT_INFINITE, radiance, 0.0)
 
 
+def _sphere_surface_at(scene: Scene, sphere_idx, p_obj_unit: V3):
+    """World position, error and normal of a unit-sphere point scaled to
+    the surface of sphere ``sphere_idx`` (per lane)."""
+    sph = scene.spheres
+    g = lambda a: a[sphere_idx.long()]                        # noqa: E731
+    o2w = tf.Transform(g(sph.o2w), g(sph.w2o))
+    p_unit = p_obj_unit.stack()
+    p_obj = p_unit * g(sph.radius)[..., None]
+    p_w, p_err = tf.transform_points_with_input_error(
+        o2w, p_obj, gamma(5) * p_obj.abs())
+    n_w = normalize(_v3(tf.transform_normals(o2w, p_unit)))
+    n_w = where3(g(sph.flip_normal), -n_w, n_w)
+    return _v3(p_w), _v3(p_err), n_w
+
+
 def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
     """Sample incident illumination from per-lane light ``light_idx``.
     Env-mapped infinite lights importance-sample scene.env_dist; plain
-    infinite lights use uniform-sphere directions."""
+    infinite lights use uniform-sphere directions; sphere area lights take
+    a uniform point on the sphere, with the pdf converted to solid angle
+    at the first intersection along wi."""
     lt = scene.lights
     n, dev = ref_p.shape, ref_p.x.device
     li = light_idx.clamp(0, max(lt.count - 1, 0))
@@ -137,10 +158,30 @@ def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
         rad_u = where3(env_tex >= 0, rad_e, rad_u)
     p_inf = ref_p + wi_u * (2.0 * scene.world_radius)
     zero = zeros3(n, dev)
+    radiance, wi = where3(sel, rad_u, zero), where3(sel, wi_u, zero)
+    pdf, p_light = torch.where(sel, pdf_u, 0.0), where3(sel, p_inf, zero)
+    p_light_err = n_light = zero
+
+    if scene.spheres.count > 0:
+        sel = ltype == LIGHT_AREA_SPHERE
+        sphere_idx = lt.shape_id[li].clamp(0, scene.spheres.count - 1)
+        p_s, p_s_err, n_s = _sphere_surface_at(
+            scene, sphere_idx, uniform_sample_sphere(u1, u2))
+        wi_s = normalize(p_s - ref_p)
+        pdf_s = light_pdf(scene, li, ref_p, wi_s)
+        # one-sided emission towards the reference point
+        rad_s = where3(dot(n_s, -wi_s) > 0.0, emit, 0.0)
+        degenerate = length(p_s - ref_p) < 1e-8
+        wi = where3(sel, wi_s, wi)
+        radiance = where3(sel & ~degenerate, rad_s,
+                          where3(sel, 0.0, radiance))
+        pdf = torch.where(sel, torch.where(degenerate, 0.0, pdf_s), pdf)
+        p_light = where3(sel, p_s, p_light)
+        p_light_err = where3(sel, p_s_err, p_light_err)
+        n_light = where3(sel, n_s, n_light)
     return LightSample(
-        radiance=where3(sel, rad_u, zero), wi=where3(sel, wi_u, zero),
-        pdf=torch.where(sel, pdf_u, 0.0), p_light=where3(sel, p_inf, zero),
-        p_light_err=zero, n_light=zero, is_delta=is_delta,
+        radiance=radiance, wi=wi, pdf=pdf, p_light=p_light,
+        p_light_err=p_light_err, n_light=n_light, is_delta=is_delta,
         is_infinite=is_infinite)
 
 
@@ -148,7 +189,8 @@ def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
               hit: Hit = None) -> torch.Tensor:
     """Solid-angle pdf that ``sample_light`` would pick direction wi:
     1/4pi for a uniform infinite light, the alias-table pdf with the
-    sin(theta) Jacobian for an env-mapped one, 0 otherwise."""
+    sin(theta) Jacobian for an env-mapped one, distance^2 / (|cos| area)
+    at the first hit along wi for a sphere area light, 0 otherwise."""
     lt = scene.lights
     n, dev = ref_p.shape, ref_p.x.device
     li = light_idx.clamp(0, max(lt.count - 1, 0))
@@ -167,4 +209,40 @@ def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
             pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
         has_env = (env_tex >= 0) & (env_slot >= 0)
         pdf_inf = torch.where(has_env, pdf_env, pdf_inf)
-    return torch.where(ltype == LIGHT_INFINITE, pdf_inf, 0.0)
+    pdf = torch.where(ltype == LIGHT_INFINITE, pdf_inf, 0.0)
+
+    if scene.spheres.count > 0:
+        sel = ltype == LIGHT_AREA_SPHERE
+        sphere_idx = lt.shape_id[li].clamp(
+            0, scene.spheres.count - 1).long()
+        # a single-sphere table per lane: that light's sphere only
+        sph = scene.spheres
+        one = Spheres(**{f: getattr(sph, f)[sphere_idx][:, None]
+                         for f in Spheres.__dataclass_fields__})
+        ref_a, wi_a = ref_p.stack(), wi.stack()
+        # start just off the reference point along wi, so a reference
+        # point on the light does not hit itself
+        o = ref_a + wi_a * 1e-3
+        t_hit, ok = _single_sphere_t(one, o, wi_a)
+        p_hit = o + t_hit[..., None] * wi_a
+        o2w = tf.Transform(one.o2w[:, 0], one.w2o[:, 0])
+        n_obj = tf.transform_points(o2w.inverse, p_hit)
+        n_w = normalize(_v3(tf.transform_normals(
+            o2w, normalize(_v3(n_obj)).stack())))
+        n_w = where3(one.flip_normal[:, 0], -n_w, n_w)
+        r = sph.radius[sphere_idx]
+        dd = ref_a - p_hit
+        d2 = (dd * dd).sum(-1)
+        denom = dot(n_w, -_v3(wi_a)).abs() * (4.0 * PI * r * r)
+        pdf_area = torch.where(ok & (denom > 0.0),
+                               d2 / denom.clamp_min(1e-12), 0.0)
+        pdf = torch.where(sel, pdf_area, pdf)
+    return pdf
+
+
+def _single_sphere_t(one: Spheres, o, d):
+    """First positive t along [N, 3] rays against per-lane one-sphere
+    tables ([N, 1] fields); returns (t, ok), each [N]."""
+    t_max = torch.full(o.shape[:-1], float("inf"), device=o.device)
+    t_all, ok = _sphere_candidates(one, o, d, t_max)
+    return t_all[..., 0], ok[..., 0]

@@ -1,10 +1,11 @@
 """Host-side scene assembly (SceneBuilder) and the bridge from JAX leaves.
 
-Counterpart of ``fountain_tpu/scene/build.py`` for the content an
-env-lit mesh scene needs: images and image/constant textures, matte
-materials, triangle meshes and infinite lights. ``build()`` compiles the
-rows into a ``Scene`` of tensors on the chosen device, with the world
-bounds, the mipmapped image atlas and the per-light env alias tables.
+Counterpart of ``fountain_tpu/scene/build.py`` for the content that
+BASELINE config 3 and the furnace need: images and image/constant
+textures, matte materials, triangle meshes, spheres, infinite lights and
+sphere area lights. ``build()`` compiles the rows into a ``Scene`` of
+tensors on the chosen device, with the world bounds, the mipmapped image
+atlas and the per-light env alias tables.
 
 ``scene_from_arrays`` turns the leaves of a ``fountain_tpu`` Scene (given
 as numpy arrays under their dotted field paths) into the port's Scene, so
@@ -17,19 +18,22 @@ import numpy as np
 import torch
 
 from fountain_tpu_torch.device import resolve_device
-from fountain_tpu_torch.scene.types import (LIGHT_INFINITE, MAT_MATTE,
+from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE,
+                                            LIGHT_INFINITE, MAT_MATTE,
                                             TEX_CONSTANT, TEX_IMAGE, Lights,
                                             Materials, Scene, Spheres,
                                             Textures, Triangles)
 
+_I4 = np.eye(4, dtype=np.float32)
+
 
 def check_supported(scene: Scene) -> None:
     """Raise on scene content the port does not compute yet."""
-    if scene.spheres.count:
-        raise NotImplementedError("spheres are not ported yet")
-    if bool((scene.lights.ltype != LIGHT_INFINITE).any()):
+    lt = scene.lights.ltype
+    if bool(((lt != LIGHT_INFINITE) & (lt != LIGHT_AREA_SPHERE)).any()):
         raise NotImplementedError(
-            "only infinite (uniform or env-mapped) lights are ported yet")
+            "only infinite (uniform or env-mapped) and sphere area lights "
+            "are ported yet")
     if bool((scene.materials.mtype != MAT_MATTE).any()):
         raise NotImplementedError("only matte materials are ported yet")
     if scene.textures.has_nested:
@@ -66,6 +70,7 @@ class SceneBuilder:
         self._tex = []
         self._mat = []
         self._lights = []
+        self._spheres = []
         self._tri_meshes = []
         self._images = []
         self._image_wraps = []
@@ -106,6 +111,23 @@ class SceneBuilder:
                               sigma_tex=self._tex_or_const([sigma] * 3)))
         return len(self._mat) - 1
 
+    def add_sphere(self, radius=1.0, o2w=None, mat_id=-1,
+                   reverse_orientation=False, z_min=None, z_max=None,
+                   phi_max_deg=360.0) -> int:
+        """A sphere of ``radius`` about the origin of its object space;
+        ``o2w`` [4, 4] maps object to world (identity by default)."""
+        o2w = _I4 if o2w is None else np.asarray(o2w, np.float32)
+        swaps = np.linalg.det(o2w[:3, :3]) < 0
+        self._spheres.append(dict(
+            o2w=o2w, w2o=np.linalg.inv(o2w).astype(np.float32),
+            radius=float(radius),
+            z_min=-radius if z_min is None else float(z_min),
+            z_max=radius if z_max is None else float(z_max),
+            phi_max=float(np.deg2rad(phi_max_deg)),
+            mat_id=int(mat_id), light_id=-1,
+            flip_normal=bool(reverse_orientation) ^ bool(swaps)))
+        return len(self._spheres) - 1
+
     def add_triangle_mesh(self, positions, indices, normals=None, uv=None,
                           mat_id=-1, reverse_orientation=False) -> int:
         """World-space positions [V,3], indices [F,3] (object-to-world
@@ -121,11 +143,29 @@ class SceneBuilder:
             flip_normal=bool(reverse_orientation)))
         return len(self._tri_meshes) - 1
 
+    def _add_light(self, **kw) -> int:
+        row = dict(ltype=LIGHT_INFINITE, emit=[1.0, 1.0, 1.0], shape_id=-1,
+                   env_tex=-1, area=0.0)
+        row.update(kw)
+        self._lights.append(row)
+        return len(self._lights) - 1
+
     def add_infinite_light(self, radiance=(1.0, 1.0, 1.0),
                            env_tex: int = -1) -> int:
-        self._lights.append(dict(emit=list(map(float, radiance)),
-                                 env_tex=int(env_tex)))
-        return len(self._lights) - 1
+        return self._add_light(ltype=LIGHT_INFINITE,
+                               emit=list(map(float, radiance)),
+                               env_tex=int(env_tex))
+
+    def add_area_light_sphere(self, sphere_idx: int, radiance) -> int:
+        """Diffuse emission from sphere ``sphere_idx`` (one-sided, along
+        its normals)."""
+        sph = self._spheres[sphere_idx]
+        lid = self._add_light(ltype=LIGHT_AREA_SPHERE,
+                              emit=list(map(float, radiance)),
+                              shape_id=int(sphere_idx),
+                              area=4.0 * np.pi * sph["radius"] ** 2)
+        sph["light_id"] = lid
+        return lid
 
     def build(self, device=None) -> Scene:
         """Compile the rows into a Scene on ``device`` (default cuda)."""
@@ -190,9 +230,27 @@ class SceneBuilder:
             uv_offset=f32([r["uv_offset"] for r in tex]),
             image_id=i32([r["image_id"] for r in tex]), has_nested=False)
 
+        spheres = _empty_spheres(dev)
+        if self._spheres:
+            sp = self._spheres
+            spheres = Spheres(
+                o2w=f32(np.stack([r["o2w"] for r in sp])),
+                w2o=f32(np.stack([r["w2o"] for r in sp])),
+                **{k: f32([r[k] for r in sp])
+                   for k in ("radius", "z_min", "z_max", "phi_max")},
+                mat_id=i32([r["mat_id"] for r in sp]),
+                light_id=i32([r["light_id"] for r in sp]),
+                flip_normal=b8([r["flip_normal"] for r in sp]))
+
         # world bounds (bounding sphere used by infinite lights)
         lo = np.full(3, np.inf, np.float32)
         hi = np.full(3, -np.inf, np.float32)
+        for r in self._spheres:
+            c = r["o2w"][:3, 3]
+            rad = abs(r["radius"]) * float(
+                np.linalg.norm(r["o2w"][:3, :3], 2))
+            lo = np.minimum(lo, c - rad)
+            hi = np.maximum(hi, c + rad)
         for m in meshes:
             if len(m["positions"]):
                 lo = np.minimum(lo, m["positions"].min(0))
@@ -235,18 +293,20 @@ class SceneBuilder:
         lt = self._lights
         n_l = len(lt)
         lights = Lights(
-            ltype=i32(np.full(n_l, LIGHT_INFINITE)),
+            ltype=i32(np.asarray([r["ltype"] for r in lt]).reshape(n_l)),
             emit=f32(np.asarray([r["emit"] for r in lt]).reshape(n_l, 3)),
             pos=f32(np.zeros((n_l, 3))),
             dir=f32(np.tile([0.0, 0.0, 1.0], (n_l, 1))),
-            shape_id=i32(np.full(n_l, -1)), tri_start=i32(np.zeros(n_l)),
-            tri_count=i32(np.zeros(n_l)),
-            env_tex=i32([r["env_tex"] for r in lt]),
-            area=f32(np.zeros(n_l)),
+            shape_id=i32(np.asarray([r["shape_id"] for r in lt])
+                         .reshape(n_l)),
+            tri_start=i32(np.zeros(n_l)), tri_count=i32(np.zeros(n_l)),
+            env_tex=i32(np.asarray([r["env_tex"] for r in lt])
+                        .reshape(n_l)),
+            area=f32(np.asarray([r["area"] for r in lt]).reshape(n_l)),
             env_slot=i32([env_slots.get(i, -1) for i in range(n_l)]))
 
         return Scene(
-            spheres=_empty_spheres(dev), triangles=triangles,
+            spheres=spheres, triangles=triangles,
             materials=materials, textures=textures, lights=lights,
             world_center=f32(center),
             world_radius=f32(max(radius, 1e-3)),

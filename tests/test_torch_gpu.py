@@ -230,3 +230,46 @@ def test_chunk_counter_is_zero_after_each_launch():
         torch.cuda.current_stream().wait_stream(side)
         np.testing.assert_array_equal(idx_side.cpu(), ip[:n].cpu())
     assert ts._COUNTERS[(0, side.cuda_stream)].tolist() == [0]
+
+
+@pytest.mark.gpu
+def test_step_on_card_matches_cpu():
+    """The differentiable step (``bench.step``) at 16x16, 12 iterations,
+    on the card and on the CPU: loss and every non-zero gradient channel
+    within rel 1e-3 (the kernels sum faces in another order than the plain
+    sweep, so a rare lane completes another number of samples)."""
+    _card()
+    from fountain_tpu_torch import bench
+    got = {}
+    for dev in ("cuda", "cpu"):
+        scene, cam = bench.build_scene(16, dev)
+        loss, grad = bench.step(scene, cam, 16, scene.textures.value, 3,
+                                n_iters=12)
+        got[dev] = (float(loss), grad.cpu())
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    nz = gc != 0
+    assert nz.any()
+    np.testing.assert_array_equal((gg != 0).numpy(), nz.numpy())
+    np.testing.assert_allclose(gg[nz].numpy(), gc[nz].numpy(), rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_step_launches_sweeps_in_forward_only():
+    """One step launches each sweep once per iteration (24), all in the
+    forward pass: the backward launches none."""
+    _card()
+    import dataclasses
+    from fountain_tpu_torch import bench
+    scene, cam = bench.build_scene(16, "cuda")
+    tv = scene.textures.value.clone().requires_grad_(True)
+    s = dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, value=tv))
+    ts.reset_launch_counts()
+    loss = bench.loss_of(bench.wave(s, cam, 16, 0))
+    fwd = dict(ts.launch_counts)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert fwd == {"tri_sweep_closest": 24, "tri_sweep_any": 24}
+    assert ts.launch_counts == fwd
+    assert bool((tv.grad != 0).any())
