@@ -40,7 +40,21 @@ Phases (any failure exits non-zero; no phase is skipped):
      64x64 against their analytic values; torch.profiler over one step,
      with the forward's and the backward's device-busy time and the
      backward's top device ops; the backward of a gather whose lanes all
-     read one row, as PyTorch runs it and as ``index_add_``.
+     read one row, as PyTorch runs it and as ``index_add_``;
+  9. the flagship, testscenes/logo_cube.pbrt (BASELINE config 5: metal
+     cube, roughness-mapped metal sphere, glass sphere, checkerboard
+     ground, sky.exr, thin-lens camera), loaded on the card: its content;
+     both kernels held to their plain versions and timed at the inputs of
+     their launches 0 and 6 of the CLI's first --regen wave (pairs,
+     kernel-only time, bound); ``cli.render.main`` at the file's settings
+     (256x256, 64 spp, depth 8) with --regen and with the fixed wave,
+     each with its wall time, paths/s, rays/s, sweep launches (counts set
+     to 0 just before), per-channel mean, and the written EXR read back
+     equal; the card against the CPU at 32x32, 4 spp (fixed wave and
+     regeneration); the furnace scene through the CLI: every pixel
+     2 +- 0.1 at 256 spp of the fixed wave (tests/test_furnace.py's
+     count for the epsilon with Russian roulette) and
+     tests/test_regen.py's gates with --regen at the file's 128 spp.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -208,30 +222,12 @@ def phase_wave(scene, cam):
     from fountain_tpu_torch.integrator.render import render_regen
     from fountain_tpu_torch.scene.film import finalize
     cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
-    captured = {}
-    originals = {"closest": ts.closest_hit_kernel, "any": ts.any_hit_kernel}
-
-    def recorder(kind):
-        calls = [0]
-
-        def wrapped(table, o, d, t_cap, *a, **k):
-            if calls[0] in (0, 8):
-                captured[(kind, calls[0])] = tuple(
-                    x.clone() for x in (*o, *d, t_cap))
-            calls[0] += 1
-            return originals[kind](table, o, d, t_cap, *a, **k)
-        return wrapped
-
     log(f"phase 3: render_regen {RES}x{RES}, depth {MAX_DEPTH}, "
         f"{REGEN_ITERS} iterations, NEE, seed 0")
-    ts.closest_hit_kernel = recorder("closest")
-    ts.any_hit_kernel = recorder("any")
-    try:   # warm-up wave (also records the iteration-0/8 kernel inputs)
-        render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg, seed=0)
-        torch.cuda.synchronize()
-    finally:
-        ts.closest_hit_kernel = originals["closest"]
-        ts.any_hit_kernel = originals["any"]
+    # warm-up wave (also records the iteration-0/8 kernel inputs)
+    captured = capture_sweep_inputs(
+        lambda: render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
+                             seed=0), (0, 8))
     torch.cuda.reset_peak_memory_stats()
     ts.reset_launch_counts()
     t0 = time.perf_counter()
@@ -256,6 +252,36 @@ def phase_wave(scene, cam):
             fail(f"{name} launched {count} times in the wave, expected "
                  f"{REGEN_ITERS}")
     return out, captured
+
+
+def capture_sweep_inputs(run, its):
+    """Run ``run()`` with each sweep wrapper recording clones of its inputs
+    (o, d, t_cap) at its launches number ``its``; returns them by
+    (kind, launch)."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    captured = {}
+    originals = {"closest": ts.closest_hit_kernel, "any": ts.any_hit_kernel}
+
+    def recorder(kind):
+        calls = [0]
+
+        def wrapped(table, o, d, t_cap, *a, **k):
+            if calls[0] in its:
+                captured[(kind, calls[0])] = tuple(
+                    x.clone() for x in (*o, *d, t_cap))
+            calls[0] += 1
+            return originals[kind](table, o, d, t_cap, *a, **k)
+        return wrapped
+
+    ts.closest_hit_kernel = recorder("closest")
+    ts.any_hit_kernel = recorder("any")
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ts.closest_hit_kernel = originals["closest"]
+        ts.any_hit_kernel = originals["any"]
+    return captured
 
 
 def phase_gpu_vs_cpu():
@@ -380,11 +406,11 @@ def kernel_only_ms(name, table, o, d, cap, reps=30):
     return events_ms(call, reps)
 
 
-def phase_kernel_times(scene, captured):
+def phase_kernel_times(scene, captured, its=(0, 8)):
+    """Each kernel at a wave's own inputs (the rays of iterations ``its``):
+    held to its plain version, timed, and set against its bound."""
     from fountain_tpu_torch.core.vecmath import V3
     from fountain_tpu_torch.geometry import tri_sweep as ts
-    log("phase 5: kernels at the wave's shapes (iterations 0 and 8; gates "
-        "as in phase 2)")
     table = scene.tri_sweep
     table_bytes = table.coef.numel() * 4 + table.bounds.numel() * 4
     rows = {}
@@ -393,7 +419,7 @@ def phase_kernel_times(scene, captured):
         any_hit = kind == "any"
         kern = ts.any_hit_kernel if any_hit else ts.closest_hit_kernel
         plain = ts.any_hit_plain if any_hit else ts.closest_hit_plain
-        for it in (0, 8):
+        for it in its:
             ox, oy, oz, dx, dy, dz, cap = captured[(kind, it)]
             o, d = V3(ox, oy, oz), V3(dx, dy, dz)
             n = cap.shape[0]
@@ -815,6 +841,191 @@ def phase_step(scene, cam, n_timed=4):
     return out
 
 
+FLAGSHIP = "testscenes/logo_cube.pbrt"
+FURNACE = "testscenes/furnace_empty.pbrt"
+FLAG_ITS = (0, 6)      # sweep launches whose inputs phase 9 checks and times
+
+
+def run_cli(args, label):
+    """``cli.render.main(args)`` with its sweep launches (counts set to 0
+    just before), its rays (each ``trace_paths`` call made to count them,
+    as ``count_rays`` counts), its wall time and the image it saved.
+    Fails unless the written EXR reads back equal to that image."""
+    from fountain_tpu_torch.cli import render as cli
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator import render as rd
+    from fountain_tpu_torch.io import image as io_image
+    from fountain_tpu_torch.io.exr import read_exr
+    saved, rays = {}, []
+    orig_trace, orig_save = rd.trace_paths, io_image.save_image
+
+    def counting_trace(*a, **k):
+        out = orig_trace(*a, **dict(k, count_rays=True))
+        if isinstance(out, tuple):          # fixed wave: (radiance, n)
+            rays.append(out[1])
+            return out[0]
+        rays.append(out.n_rays)
+        return out
+
+    def keep(path, img):
+        saved[path] = np.array(img)
+        orig_save(path, img)
+    rd.trace_paths, io_image.save_image = counting_trace, keep
+    try:
+        torch.cuda.synchronize()
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main(args) != 0:
+            fail(f"{label}: the CLI returned non-zero")
+        wall = time.perf_counter() - t0
+        launches = dict(ts.launch_counts)
+    finally:
+        rd.trace_paths, io_image.save_image = orig_trace, orig_save
+    (path, img), = saved.items()
+    back = read_exr(path)
+    n_rays = int(sum(int(r) for r in rays))
+    out = dict(wall_s=wall, rays=n_rays, rays_per_s=n_rays / wall,
+               launches=launches,
+               channel_mean=[float(c) for c in img.mean((0, 1))],
+               finite=bool(np.isfinite(img).all()),
+               exr_equal=bool(np.array_equal(back, img)))
+    return out, img
+
+
+def profile_wave(run, n_iters):
+    """torch.profiler over ``run()`` (one wave of ``n_iters``
+    iterations, ending in a synchronize): device-busy ms against the
+    host-clock ms, device calls per iteration, the top 6 device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if not dev:
+        log("  device time: not measured (the profiler reported none)")
+        return {}
+    busy, calls = _busy(dev)
+    by_name = {}
+    for e in dev:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    out = dict(busy_ms=busy, wall_ms=wall, share=busy / wall,
+               calls_per_iteration=calls / n_iters,
+               top=[dict(name=n[:100], ms=ms, count=c)
+                    for n, (ms, c) in top])
+    log("  profiled wave (the profiler slows the host: the share is a "
+        "lower bound): " + json.dumps(out))
+    return out
+
+
+def phase_flagship():
+    """The flagship scene through the port's CLI on the card, its kernel
+    inputs against the plain versions, the card against the CPU, and the
+    furnace through the CLI. Fails on any gate."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render, render_regen
+    from fountain_tpu_torch.io.pbrt import load_pbrt
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    out = {}
+    t0 = time.perf_counter()
+    scene, cam, st = load_pbrt(os.path.join(ROOT, FLAGSHIP), device=DEVICE)
+    content = dict(
+        faces=scene.triangles.count, spheres=scene.spheres.count,
+        lights=scene.lights.count, materials=scene.materials.count,
+        material_types=scene.materials.mtype.tolist(),
+        textures=scene.textures.count,
+        nested_textures=scene.textures.has_nested,
+        images=scene.env_images.count, load_s=time.perf_counter() - t0,
+        res=st.xres, spp=st.spp, max_depth=st.max_depth,
+        lens_radius=cam.lens_radius, focal_dist=cam.focal_dist)
+    log(f"phase 9: {FLAGSHIP} on the card: " + json.dumps(content))
+    out["scene"] = content
+    cfg = PathConfig(max_depth=st.max_depth, rr_threshold=1.0, nee=True)
+    n_iters = min(st.spp, 16) + st.max_depth + 1    # the CLI's first wave
+    captured = capture_sweep_inputs(
+        lambda: render_regen(scene, cam, st.xres, st.yres, n_iters, cfg,
+                             seed=0, spp_total=st.spp), FLAG_ITS)
+    log(f"  kernels at the first --regen wave's inputs (launches "
+        f"{FLAG_ITS}; gates as in phase 2)")
+    out["kernels"] = phase_kernel_times(scene, captured, FLAG_ITS)
+    out["profile"] = profile_wave(
+        lambda: render_regen(scene, cam, st.xres, st.yres, n_iters, cfg,
+                             seed=0, spp_total=st.spp), n_iters)
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    exr = os.path.join(build, "logo_cube.exr")
+    for label, extra in (("regen", ["--regen"]), ("fixed", [])):
+        res, img = run_cli([os.path.join(ROOT, FLAGSHIP), "-o", exr]
+                           + extra, f"logo_cube {label}")
+        res["paths_per_s"] = st.xres * st.yres * st.spp / res["wall_s"]
+        log(f"  CLI {label} ({st.xres}x{st.yres}, {st.spp} spp, depth "
+            f"{st.max_depth}): " + json.dumps(res))
+        if not (res["finite"] and res["exr_equal"]):
+            fail(f"logo_cube {label}: image not finite or EXR differs")
+        if min(res["launches"].values()) < 1:
+            fail(f"logo_cube {label}: a sweep kernel was not launched")
+        if min(res["channel_mean"]) <= 0.0:
+            fail(f"logo_cube {label}: black image")
+        out[f"cli_{label}"] = res
+
+    res_c, spp_c = 32, 4
+    cam_c = make_perspective_camera(
+        tf.from_matrix(st.camera_to_world), (res_c, res_c), st.fov,
+        st.lens_radius, st.focal_dist)
+    scene_cpu, _, _ = load_pbrt(os.path.join(ROOT, FLAGSHIP), device="cpu")
+    imgs, films = {}, {}
+    for dev, sc in ((DEVICE, scene), ("cpu", scene_cpu)):
+        imgs[dev] = render(sc, cam_c, res_c, res_c, spp_c, cfg,
+                           seed=0).cpu()
+        films[dev] = render_regen(sc, cam_c, res_c, res_c,
+                                  spp_c + st.max_depth + 1, cfg, seed=0,
+                                  spp_total=spp_c)
+    g, c = imgs[DEVICE], imgs["cpu"]
+    rel_mean = abs(float(g.mean() - c.mean())) / abs(float(c.mean()))
+    close = torch.isclose(g, c, rtol=1e-3, atol=1e-6).all(-1)
+    fg, fc = films[DEVICE], films["cpu"]
+    mean = lambda f: float((f.r_sum.sum() + f.g_sum.sum() + f.b_sum.sum())
+                           / (3.0 * f.weight_sum.sum()))
+    rel_regen = abs(mean(fg) - mean(fc)) / abs(mean(fc))
+    n_eq = float((fg.weight_sum.cpu() == fc.weight_sum).float().mean())
+    cmp = dict(fixed_mean_rel=rel_mean,
+               fixed_pixels_close=float(close.float().mean()),
+               regen_mean_rel=rel_regen, regen_n_done_equal=n_eq)
+    log(f"  card vs CPU at {res_c}x{res_c}, {spp_c} spp, depth "
+        f"{st.max_depth} (gates: means rel 1e-3, >= 99% of pixels rtol "
+        "1e-3, >= 99% of lanes equal n_done): " + json.dumps(cmp))
+    if rel_mean > 1e-3 or cmp["fixed_pixels_close"] < 0.99 \
+            or rel_regen > 1e-3 or n_eq < 0.99:
+        fail("card and CPU renders of the flagship disagree")
+    out["card_vs_cpu"] = cmp
+
+    # the furnace: 2 in every pixel; the reference's epsilon 0.1 with
+    # Russian roulette at 256 spp of the fixed wave (tests/test_furnace.py),
+    # and tests/test_regen.py's gates for the regeneration estimator
+    fexr = os.path.join(build, "furnace.exr")
+    for label, extra, pix, mean_gate in (
+            ("fixed", ["--samples", "256"], 0.1, 0.01),
+            ("regen", ["--regen"], 0.4, 0.05)):
+        res, img = run_cli([os.path.join(ROOT, FURNACE), "-o", fexr]
+                           + extra, f"furnace {label}")
+        res.update(mean=float(img.mean()),
+                   max_dev=float(np.abs(img - 2.0).max()))
+        log(f"  furnace CLI {label} {' '.join(extra)} (gates: every pixel "
+            f"2 +- {pix}, mean 2 +- {mean_gate}): " + json.dumps(res))
+        if not (res["finite"] and res["exr_equal"]) \
+                or res["max_dev"] > pix or abs(res["mean"] - 2.0) > mean_gate:
+            fail(f"furnace {label}: off its analytic value")
+        out[f"furnace_{label}"] = res
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -846,10 +1057,19 @@ def main():
     err_t = phase_parity(scene)
     wave, captured = phase_wave(scene, cam)
     phase_gpu_vs_cpu()
+    log("phase 5: kernels at the wave's shapes (iterations 0 and 8; gates "
+        "as in phase 2)")
     times = phase_kernel_times(scene, captured)
     phase_ray_order(scene, cam)
     prof = phase_profile(scene, cam)
     step = phase_step(scene, cam)
+    flag = phase_flagship()
+    paths = {"config3_wave": wave["launches"],
+             "config3_step": step["launches_per_step"],
+             "logo_cube_cli_regen": flag["cli_regen"]["launches"],
+             "logo_cube_cli_fixed": flag["cli_fixed"]["launches"],
+             "furnace_cli_fixed": flag["furnace_fixed"]["launches"],
+             "furnace_cli_regen": flag["furnace_regen"]["launches"]}
 
     kernels = []
     for name, replaces in (
@@ -863,7 +1083,10 @@ def main():
             source="fountain_tpu_torch/csrc/tri_sweep.cu",
             replaces=replaces, launches=wave["launches"][name],
             launches_per_step=step["launches_per_step"][name],
+            launches_by_path={k: v[name] for k, v in paths.items()},
             max_abs_err=max(r8["max_abs_err"], times[(name, 0)]["max_abs_err"],
+                            *(flag["kernels"][(name, it)]["max_abs_err"]
+                              for it in FLAG_ITS),
                             0.0 if name == "tri_sweep_any" else err_t),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
             bound_by=r8["bound_by"], library_ms=None,
@@ -873,7 +1096,9 @@ def main():
             it0={k: times[(name, 0)][k] for k in ROW_KEYS}
             | {"profiler_ms": prof.get(name, {}).get("it0_ms")},
             it8={k: r8[k] for k in ROW_KEYS}
-            | {"profiler_ms": prof.get(name, {}).get("it8_ms")}))
+            | {"profiler_ms": prof.get(name, {}).get("it8_ms")},
+            logo_cube={f"it{it}": {k: flag["kernels"][(name, it)][k]
+                                   for k in ROW_KEYS} for it in FLAG_ITS}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

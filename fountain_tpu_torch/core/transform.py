@@ -155,3 +155,9 @@ def transform_points_with_input_error(t: Transform, p: torch.Tensor,
     abs_term = (abs_m[..., :3] * p.abs()[..., None, :]).sum(-1) \
         + abs_m[..., 3]
     return pt, err_in + gamma(3) * abs_term
+
+
+def from_matrix(m) -> Transform:
+    """A Transform of a [4, 4] matrix, its inverse taken in float64."""
+    m = torch.as_tensor(np.asarray(m, np.float32))
+    return Transform(m, _inv(m))

@@ -81,6 +81,14 @@ def zeros3(shape, device) -> V3:
     return V3(z, z, z)
 
 
+def gather3(table: torch.Tensor, idx) -> V3:
+    """Rows ``idx`` [N] of an [R, 3] table as a V3, by ``index_select``:
+    its backward is ``index_add_`` (a ``table[idx]`` gather's backward is
+    an accumulating ``index_put_`` that serialises duplicate indices)."""
+    r = torch.index_select(table, 0, idx)
+    return V3(r[:, 0], r[:, 1], r[:, 2])
+
+
 def where3(mask, a, b) -> V3:
     """Per-lane select between V3s (mask [N]; a/b V3 or scalar)."""
     ax, ay, az = (a.x, a.y, a.z) if isinstance(a, V3) else (a, a, a)
@@ -154,3 +162,14 @@ def offset_ray_origin(p: V3, p_err: V3, n: V3, w: V3) -> V3:
     po = p + offset
     return V3(bump(po.x, offset.x), bump(po.y, offset.y),
               bump(po.z, offset.z))
+
+
+def refract(wi: V3, n: V3, eta):
+    """Refract ``wi`` about ``n`` with relative IOR eta = eta_i / eta_t.
+    Returns (wt, valid); valid is False on total internal reflection."""
+    cos_theta_i = dot(n, wi)
+    sin2_theta_i = (1.0 - cos_theta_i * cos_theta_i).clamp_min(0.0)
+    sin2_theta_t = eta * eta * sin2_theta_i
+    valid = sin2_theta_t < 1.0
+    cos_theta_t = torch.sqrt((1.0 - sin2_theta_t).clamp_min(0.0))
+    return (-wi) * eta + n * (eta * cos_theta_i - cos_theta_t), valid

@@ -253,8 +253,7 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     """
     if not detach_sampling:
         raise NotImplementedError(
-            "attached sampling (detach_sampling=False) needs the GGX "
-            "sampler of config 4, which is not ported yet")
+            "attached sampling (detach_sampling=False) is not ported yet")
     if cfg.mode != "path" or not cfg.nee or cfg.emit_all_bounces:
         raise NotImplementedError(
             "only mode='path' with nee=True is ported yet")

@@ -1,8 +1,9 @@
-"""Minimal OpenEXR reader in pure numpy (uncompressed scanlines).
+"""Minimal OpenEXR I/O in pure numpy (uncompressed scanlines).
 
-The port's own copy of the reader in ``fountain_tpu/io/exr.py`` (the port
-imports nothing of the JAX package). Supports RGB float32/float16
-NO_COMPRESSION scanline files.
+The port's own copy of ``fountain_tpu/io/exr.py`` (the port imports
+nothing of the JAX package): ``write_exr`` writes the same bytes for the
+same array, ``read_exr`` reads RGB float32/float16 NO_COMPRESSION
+scanline files.
 """
 from __future__ import annotations
 
@@ -12,6 +13,47 @@ import numpy as np
 
 _MAGIC = 20000630
 _PT_UINT, _PT_HALF, _PT_FLOAT = 0, 1, 2
+
+
+def _attr(name: str, typ: str, data: bytes) -> bytes:
+    return name.encode() + b"\0" + typ.encode() + b"\0" + \
+        struct.pack("<i", len(data)) + data
+
+
+def write_exr(path: str, image: np.ndarray) -> None:
+    """Write an [H, W, 3] float image as an uncompressed RGB float EXR."""
+    img = np.asarray(image, np.float32)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"write_exr: RGB only, got {c} channels")
+    # channel list, alphabetical (B, G, R), FLOAT
+    chlist = b"".join(name + b"\0" + struct.pack("<i", _PT_FLOAT)
+                      + b"\x00\x00\x00\x00" + struct.pack("<ii", 1, 1)
+                      for name in (b"B", b"G", b"R")) + b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = b"".join([
+        _attr("channels", "chlist", chlist),
+        _attr("compression", "compression", b"\x00"),  # NO_COMPRESSION
+        _attr("dataWindow", "box2i", box),
+        _attr("displayWindow", "box2i", box),
+        _attr("lineOrder", "lineOrder", b"\x00"),      # INCREASING_Y
+        _attr("pixelAspectRatio", "float", struct.pack("<f", 1.0)),
+        _attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0)),
+        _attr("screenWindowWidth", "float", struct.pack("<f", 1.0)),
+    ]) + b"\0"
+    preamble = struct.pack("<ii", _MAGIC, 2) + header
+    row_bytes = 8 + 3 * 4 * w  # y + size prefix + 3 channels
+    data_start = len(preamble) + 8 * h
+    offsets = data_start + row_bytes * np.arange(h, dtype=np.uint64)
+    # per scanline: the B, G and R rows, channel-major in header order
+    bgr = img[..., ::-1]
+    chunks = b"".join(
+        struct.pack("<ii", y, 12 * w) + bgr[y].T.astype("<f4").tobytes()
+        for y in range(h))
+    with open(path, "wb") as fh:
+        fh.write(preamble)
+        fh.write(offsets.astype("<u8").tobytes())
+        fh.write(chunks)
 
 
 def read_exr(path: str) -> np.ndarray:

@@ -18,8 +18,9 @@ from fountain_tpu_torch.core import transform as tf
 from fountain_tpu_torch.core.sampling import (pdf_env_alias,
                                               sample_env_alias,
                                               uniform_sample_sphere)
-from fountain_tpu_torch.core.vecmath import (PI, V3, dot, gamma, length,
-                                             normalize, where3, zeros3)
+from fountain_tpu_torch.core.vecmath import (PI, V3, dot, gamma, gather3,
+                                             length, normalize, where3,
+                                             zeros3)
 from fountain_tpu_torch.geometry.intersect import (Hit, _sphere_candidates,
                                                    _v3)
 from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE, LIGHT_DISTANT,
@@ -57,11 +58,6 @@ def _eval_env_tex(scene: Scene, tex_id, u, v) -> V3:
     return eval_texture(scene.textures, tex_id, u, v, tex_lookup=lookup)
 
 
-def _rows3(table: torch.Tensor, li) -> V3:
-    r = table[li]
-    return V3(r[:, 0], r[:, 1], r[:, 2])
-
-
 @dataclass
 class LightSample:
     radiance: V3
@@ -77,7 +73,7 @@ class LightSample:
 def emitted_radiance(scene: Scene, hit: Hit) -> V3:
     """One-sided area-light emission toward the viewer at surface hits."""
     lid = hit.light_id.clamp(0, max(scene.lights.count - 1, 0))
-    emit = _rows3(scene.lights.emit, lid)
+    emit = gather3(scene.lights.emit, lid)
     visible = dot(hit.n, hit.wo) > 0.0
     on = (hit.light_id >= 0) & hit.valid & visible
     return where3(on, emit, 0.0)
@@ -130,7 +126,7 @@ def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
     n, dev = ref_p.shape, ref_p.x.device
     li = light_idx.clamp(0, max(lt.count - 1, 0))
     ltype = lt.ltype[li]
-    emit = _rows3(lt.emit, li)
+    emit = gather3(lt.emit, li)
     env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
     is_delta = (ltype == LIGHT_POINT) | (ltype == LIGHT_DISTANT)
     is_infinite = (ltype == LIGHT_INFINITE) | (ltype == LIGHT_DISTANT)

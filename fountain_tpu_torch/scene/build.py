@@ -1,11 +1,12 @@
 """Host-side scene assembly (SceneBuilder) and the bridge from JAX leaves.
 
-Counterpart of ``fountain_tpu/scene/build.py`` for the content that
-BASELINE config 3 and the furnace need: images and image/constant
-textures, matte materials, triangle meshes, spheres, infinite lights and
+Counterpart of ``fountain_tpu/scene/build.py`` for images, every texture
+type (constant, uv, image, checker, scale), the five materials, triangle
+meshes (with object-to-world transforms), spheres, infinite lights and
 sphere area lights. ``build()`` compiles the rows into a ``Scene`` of
 tensors on the chosen device, with the world bounds, the mipmapped image
-atlas and the per-light env alias tables.
+atlas and the per-light env alias tables. Point, distant and mesh area
+lights are not ported yet.
 
 ``scene_from_arrays`` turns the leaves of a ``fountain_tpu`` Scene (given
 as numpy arrays under their dotted field paths) into the port's Scene, so
@@ -19,12 +20,20 @@ import torch
 
 from fountain_tpu_torch.device import resolve_device
 from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE,
-                                            LIGHT_INFINITE, MAT_MATTE,
-                                            TEX_CONSTANT, TEX_IMAGE, Lights,
+                                            LIGHT_INFINITE, MAT_GLASS,
+                                            MAT_MATTE, MAT_METAL, MAT_MIRROR,
+                                            MAT_PLASTIC, TEX_CHECKER,
+                                            TEX_CONSTANT, TEX_IMAGE,
+                                            TEX_SCALE, TEX_UV, Lights,
                                             Materials, Scene, Spheres,
                                             Textures, Triangles)
 
 _I4 = np.eye(4, dtype=np.float32)
+# a material row's defaults (texture id 0 is the reserved black constant)
+_MAT_ROW = dict(mtype=MAT_MATTE, kd_tex=0, ks_tex=0, kr_tex=0, kt_tex=0,
+                sigma_tex=0, rough_u_tex=0, rough_v_tex=0, eta=1.5,
+                eta3=[1.0, 1.0, 1.0], k3=[1.0, 1.0, 1.0],
+                remap_roughness=True)
 
 
 def check_supported(scene: Scene) -> None:
@@ -34,10 +43,6 @@ def check_supported(scene: Scene) -> None:
         raise NotImplementedError(
             "only infinite (uniform or env-mapped) and sphere area lights "
             "are ported yet")
-    if bool((scene.materials.mtype != MAT_MATTE).any()):
-        raise NotImplementedError("only matte materials are ported yet")
-    if scene.textures.has_nested:
-        raise NotImplementedError("checker/scale textures are not ported")
     if scene.light_tri is not None:
         raise NotImplementedError("mesh area lights are not ported yet")
 
@@ -95,6 +100,19 @@ class SceneBuilder:
         value = np.broadcast_to(np.asarray(value, np.float32), (3,)).tolist()
         return self._add_tex(ttype=TEX_CONSTANT, value=value)
 
+    def add_checkerboard_texture(self, tex1: int, tex2: int,
+                                 uscale=1.0, vscale=1.0) -> int:
+        return self._add_tex(ttype=TEX_CHECKER, sub_a=tex1, sub_b=tex2,
+                             uv_scale=[uscale, vscale])
+
+    def add_uv_texture(self) -> int:
+        return self._add_tex(ttype=TEX_UV)
+
+    def add_scale_texture(self, inner: int, factor) -> int:
+        factor = np.broadcast_to(np.asarray(factor, np.float32),
+                                 (3,)).tolist()
+        return self._add_tex(ttype=TEX_SCALE, sub_a=inner, value=factor)
+
     def add_image_texture(self, image_id: int, uscale=1.0, vscale=1.0,
                           uoffset=0.0, voffset=0.0) -> int:
         return self._add_tex(ttype=TEX_IMAGE, image_id=image_id,
@@ -102,14 +120,50 @@ class SceneBuilder:
                              uv_offset=[uoffset, voffset])
 
     def _tex_or_const(self, v) -> int:
+        """A texture id (int) as it is, or a constant value's new id."""
         if isinstance(v, (int, np.integer)):
             return int(v)
         return self.add_constant_texture(v)
 
-    def add_matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0) -> int:
-        self._mat.append(dict(mtype=MAT_MATTE, kd_tex=self._tex_or_const(kd),
-                              sigma_tex=self._tex_or_const([sigma] * 3)))
+    def _add_mat(self, **kw) -> int:
+        self._mat.append(dict(_MAT_ROW, **kw))
         return len(self._mat) - 1
+
+    def add_matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0) -> int:
+        return self._add_mat(mtype=MAT_MATTE, kd_tex=self._tex_or_const(kd),
+                             sigma_tex=self._tex_or_const([sigma] * 3))
+
+    def add_mirror(self, kr=(0.9, 0.9, 0.9)) -> int:
+        return self._add_mat(mtype=MAT_MIRROR, kr_tex=self._tex_or_const(kr))
+
+    def add_glass(self, kr=(1.0, 1.0, 1.0), kt=(1.0, 1.0, 1.0), eta=1.5,
+                  rough_u=0.0, rough_v=0.0, remap=True) -> int:
+        return self._add_mat(
+            mtype=MAT_GLASS, kr_tex=self._tex_or_const(kr),
+            kt_tex=self._tex_or_const(kt), eta=float(eta),
+            rough_u_tex=self._tex_or_const([rough_u] * 3),
+            rough_v_tex=self._tex_or_const([rough_v] * 3),
+            remap_roughness=remap)
+
+    def add_metal(self, eta3=(0.2, 0.92, 1.1), k3=(3.9, 2.45, 2.14),
+                  roughness=0.01, rough_u=None, rough_v=None,
+                  remap=True) -> int:
+        """``rough_u`` / ``rough_v`` (default ``roughness``) are values or
+        texture ids."""
+        ru = roughness if rough_u is None else rough_u
+        rv = roughness if rough_v is None else rough_v
+        return self._add_mat(
+            mtype=MAT_METAL, eta3=list(map(float, eta3)),
+            k3=list(map(float, k3)), rough_u_tex=self._tex_or_const(ru),
+            rough_v_tex=self._tex_or_const(rv), remap_roughness=remap)
+
+    def add_plastic(self, kd=(0.25, 0.25, 0.25), ks=(0.25, 0.25, 0.25),
+                    roughness=0.1, remap=True) -> int:
+        return self._add_mat(
+            mtype=MAT_PLASTIC, kd_tex=self._tex_or_const(kd),
+            ks_tex=self._tex_or_const(ks),
+            rough_u_tex=self._tex_or_const([roughness] * 3),
+            remap_roughness=remap)
 
     def add_sphere(self, radius=1.0, o2w=None, mat_id=-1,
                    reverse_orientation=False, z_min=None, z_max=None,
@@ -129,10 +183,20 @@ class SceneBuilder:
         return len(self._spheres) - 1
 
     def add_triangle_mesh(self, positions, indices, normals=None, uv=None,
-                          mat_id=-1, reverse_orientation=False) -> int:
-        """World-space positions [V,3], indices [F,3] (object-to-world
-        transforms are not ported yet)."""
+                          mat_id=-1, reverse_orientation=False,
+                          o2w=None) -> int:
+        """Positions [V,3] (object space if ``o2w`` [4, 4] is given: they
+        are transformed here, before the leaf order is built, and the
+        normals by the inverse transpose), indices [F,3]."""
         positions = np.asarray(positions, np.float32)
+        swaps = False
+        if o2w is not None:
+            o2w = np.asarray(o2w, np.float32)
+            swaps = bool(np.linalg.det(o2w[:3, :3]) < 0)
+            positions = positions @ o2w[:3, :3].T + o2w[:3, 3]
+            if normals is not None:
+                nrm_m = np.linalg.inv(o2w[:3, :3]).T
+                normals = np.asarray(normals, np.float32) @ nrm_m.T
         if normals is not None:
             normals = np.asarray(normals, np.float32)
             ln = np.linalg.norm(normals, axis=-1, keepdims=True)
@@ -140,7 +204,7 @@ class SceneBuilder:
         self._tri_meshes.append(dict(
             positions=positions, indices=np.asarray(indices, np.int32),
             normals=normals, uv=uv, mat_id=int(mat_id),
-            flip_normal=bool(reverse_orientation)))
+            flip_normal=bool(reverse_orientation) ^ swaps))
         return len(self._tri_meshes) - 1
 
     def _add_light(self, **kw) -> int:
@@ -207,18 +271,14 @@ class SceneBuilder:
                 [np.full(len(m["indices"]), k) for k, m in enumerate(meshes)])
                 if meshes else np.zeros((0,))))
 
-        mats = self._mat or [dict(mtype=MAT_MATTE, kd_tex=0, sigma_tex=0)]
-        n_mat = len(mats)
+        mats = self._mat or [_MAT_ROW]
+        col = lambda k: [r[k] for r in mats]                  # noqa: E731
         materials = Materials(
-            mtype=i32([r["mtype"] for r in mats]),
-            kd_tex=i32([r["kd_tex"] for r in mats]),
-            ks_tex=i32(np.zeros(n_mat)), kr_tex=i32(np.zeros(n_mat)),
-            kt_tex=i32(np.zeros(n_mat)),
-            sigma_tex=i32([r["sigma_tex"] for r in mats]),
-            rough_u_tex=i32(np.zeros(n_mat)),
-            rough_v_tex=i32(np.zeros(n_mat)),
-            eta=f32(np.full(n_mat, 1.5)), eta3=f32(np.ones((n_mat, 3))),
-            k3=f32(np.ones((n_mat, 3))), remap_roughness=b8(np.ones(n_mat)))
+            **{k: i32(col(k)) for k in ("mtype", "kd_tex", "ks_tex",
+                                        "kr_tex", "kt_tex", "sigma_tex",
+                                        "rough_u_tex", "rough_v_tex")},
+            eta=f32(col("eta")), eta3=f32(col("eta3")), k3=f32(col("k3")),
+            remap_roughness=b8(col("remap_roughness")))
 
         tex = self._tex
         textures = Textures(
@@ -228,7 +288,9 @@ class SceneBuilder:
             sub_b=i32([r["sub_b"] for r in tex]),
             uv_scale=f32([r["uv_scale"] for r in tex]),
             uv_offset=f32([r["uv_offset"] for r in tex]),
-            image_id=i32([r["image_id"] for r in tex]), has_nested=False)
+            image_id=i32([r["image_id"] for r in tex]),
+            has_nested=any(r["ttype"] in (TEX_CHECKER, TEX_SCALE)
+                           for r in tex))
 
         spheres = _empty_spheres(dev)
         if self._spheres:
@@ -268,10 +330,7 @@ class SceneBuilder:
             from fountain_tpu_torch.core.sampling import make_env_alias_stack
             from fountain_tpu_torch.shading.mipmap import build_atlas
             atlas = build_atlas(self._images, self._image_wraps, dev)
-            per_light = [(lid, tex[r["env_tex"]]["image_id"])
-                         for lid, r in enumerate(self._lights)
-                         if r["env_tex"] >= 0
-                         and tex[r["env_tex"]]["ttype"] == TEX_IMAGE]
+            per_light = self._env_light_images()
             if per_light:
                 # common grid: nearest-upsample every map to the largest
                 nv_c = max(self._images[i].shape[0] for _, i in per_light)
@@ -311,6 +370,24 @@ class SceneBuilder:
             world_center=f32(center),
             world_radius=f32(max(radius, 1e-3)),
             env_images=atlas, env_dist=env_dist)
+
+    def _env_light_images(self):
+        """[(light_idx, image_id)] for every env-mapped infinite light,
+        resolving scale nesting down to the image texture."""
+        out = []
+        for lid, r in enumerate(self._lights):
+            if r["ltype"] != LIGHT_INFINITE or r["env_tex"] < 0:
+                continue
+            tid = r["env_tex"]
+            for _ in range(4):
+                row = self._tex[tid]
+                if row["ttype"] == TEX_IMAGE:
+                    out.append((lid, row["image_id"]))
+                    break
+                if row["ttype"] != TEX_SCALE:
+                    break
+                tid = row["sub_a"]
+        return out
 
 
 def scene_from_arrays(arrays: dict, device=None) -> Scene:

@@ -17,6 +17,8 @@ MAT_MIRROR = 1
 MAT_GLASS = 2
 MAT_METAL = 3
 MAT_PLASTIC = 4
+ALL_MATERIALS = frozenset((MAT_MATTE, MAT_MIRROR, MAT_GLASS, MAT_METAL,
+                           MAT_PLASTIC))
 
 TEX_CONSTANT = 0
 TEX_CHECKER = 1
@@ -79,6 +81,11 @@ class Materials:
     eta3: torch.Tensor         # [M, 3] conductor eta
     k3: torch.Tensor           # [M, 3] conductor absorption
     remap_roughness: torch.Tensor  # [M] bool
+
+    def __post_init__(self):
+        # the material types in the table, read once to the host: shading
+        # builds the lobes and sampling candidates of these types only
+        self.present = frozenset(self.mtype.tolist())
 
     @property
     def count(self) -> int:

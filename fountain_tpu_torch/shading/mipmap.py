@@ -12,7 +12,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from fountain_tpu_torch.core.vecmath import V3, where3
+from fountain_tpu_torch.core.vecmath import V3, gather3, where3
 
 WRAP_REPEAT = 0
 WRAP_CLAMP = 1
@@ -141,8 +141,8 @@ def _bilerp_level(atlas: ImageAtlas, image_id, level, u, v) -> V3:
     def texel(si, ti):
         xi, okx = _wrap_coord(si, w, wrap)
         yi, oky = _wrap_coord(ti, h, wrap)
-        r = atlas.texels[off + yi * w + xi]
-        return where3(okx & oky, V3(r[:, 0], r[:, 1], r[:, 2]), 0.0)
+        return where3(okx & oky,
+                      gather3(atlas.texels, off + yi * w + xi), 0.0)
 
     return (texel(s0, t0) * ((1 - ds) * (1 - dt))
             + texel(s0, t0 + 1) * ((1 - ds) * dt)

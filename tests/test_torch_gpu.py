@@ -273,3 +273,43 @@ def test_step_launches_sweeps_in_forward_only():
     assert fwd == {"tri_sweep_closest": 24, "tri_sweep_any": 24}
     assert ts.launch_counts == fwd
     assert bool((tv.grad != 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [["--regen"], ["--samples", "256"]])
+def test_cli_furnace_on_card(extra, tmp_path):
+    """The render CLI on the card (its default device): the furnace's
+    pixels are 2 +- 0.1 at 256 spp of the fixed wave and within
+    tests/test_regen.py's gates (mean 2 +- 0.05, pixels 2 +- 0.4) with
+    --regen. The furnace has no triangles, so no sweep is launched."""
+    _card()
+    from fountain_tpu_torch.cli.render import main
+    from fountain_tpu_torch.io.exr import read_exr
+    out = str(tmp_path / "furnace.exr")
+    ts.reset_launch_counts()
+    assert main(["testscenes/furnace_empty.pbrt", "-o", out] + extra) == 0
+    img = read_exr(out)
+    assert ts.launch_counts == {"tri_sweep_closest": 0, "tri_sweep_any": 0}
+    pix, mean = (0.4, 0.05) if "--regen" in extra else (0.1, 0.01)
+    assert abs(float(img.mean()) - 2.0) < mean
+    np.testing.assert_allclose(img, 2.0, atol=pix)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regen", [True, False])
+def test_cli_flagship_launches_sweeps_on_card(regen, tmp_path):
+    """logo_cube.pbrt through the CLI on the card at 2 spp: both sweeps
+    run as CUDA kernels, once a bounce (9 a sample of the fixed wave; once
+    an iteration of the regeneration wave), and the image is finite."""
+    _card()
+    from fountain_tpu_torch.cli.render import main
+    from fountain_tpu_torch.io.exr import read_exr
+    out = str(tmp_path / "logo.exr")
+    ts.reset_launch_counts()
+    assert main(["testscenes/logo_cube.pbrt", "-o", out, "--samples", "2"]
+                + (["--regen"] if regen else [])) == 0
+    n = 2 + 8 + 1 if regen else 2 * 9
+    assert ts.launch_counts == {"tri_sweep_closest": n, "tri_sweep_any": n}
+    img = read_exr(out)
+    assert img.shape == (256, 256, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.0

@@ -1,9 +1,10 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor Pillow.
 
 Checked twice: a grep of every import statement in fountain_tpu_torch/ and
 chip_smoke.py, and an import of every module of the package in a fresh
-interpreter whose sys.modules must then hold no ``jax`` and no
-``fountain_tpu``.
+interpreter whose sys.modules must then hold no ``jax``, no
+``fountain_tpu`` and no ``PIL`` (the card's machine has no Pillow: the
+port decodes and encodes PNG itself).
 """
 import pathlib
 import re
@@ -14,8 +15,9 @@ import jax  # noqa: F401  (the test files of the port import both)
 import torch  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-_BAD = re.compile(r"^\s*(import|from)\s+(jax|fountain_tpu)(\.|\s|$)",
-                  re.MULTILINE)
+_BAD = re.compile(
+    r"^\s*(import|from)\s+(jax|fountain_tpu|PIL|Pillow)(\.|\s|$)",
+    re.MULTILINE)
 
 
 def test_no_jax_import_statements():
@@ -36,7 +38,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'fountain_tpu' or "
-        "k.startswith('fountain_tpu.')]\n"
+        "k.startswith('fountain_tpu.') or k.split('.')[0] in "
+        "('PIL', 'Pillow')]\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('fountain_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
