@@ -47,14 +47,26 @@ Phases (any failure exits non-zero; no phase is skipped):
      both kernels held to their plain versions and timed at the inputs of
      their launches 0 and 6 of the CLI's first --regen wave (pairs,
      kernel-only time, bound); ``cli.render.main`` at the file's settings
-     (256x256, 64 spp, depth 8) with --regen and with the fixed wave,
+     (256x256, 64 spp, depth 8) with --regen, and the fixed wave at 16 spp,
      each with its wall time, paths/s, rays/s, sweep launches (counts set
      to 0 just before), per-channel mean, and the written EXR read back
      equal; the card against the CPU at 32x32, 4 spp (fixed wave and
      regeneration); the furnace scene through the CLI: every pixel
      2 +- 0.1 at 256 spp of the fixed wave (tests/test_furnace.py's
      count for the epsilon with Russian roulette) and
-     tests/test_regen.py's gates with --regen at the file's 128 spp.
+     tests/test_regen.py's gates with --regen at the file's 128 spp;
+ 10. the flagship's differentiable step (``bench.flagship_step``, the JAX
+     package's tools/bench_all.py config 5: a fixed wave of 512x512 lanes
+     through logo_cube.pbrt's camera, depth 5, NEE, the gradient of the
+     summed radiance / 3 with respect to the texture values and the atlas
+     texels), once in each estimator: a warm-up and 3 timed steps
+     (fwd+bwd rays/s, step times, peak memory, each sweep's launches in
+     the forward and the backward pass: 6 and 0), every gradient entry
+     finite; both kernels held to their plain versions and timed at the
+     step's rays of bounces 0 and 3; the card against the CPU at 16x16
+     lanes, depth 3; torch.profiler over one step; and, attached only,
+     central differences of the metal sphere's roughness image at full
+     width (loose gate: same sign, ratio in (0.5, 2)).
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -654,20 +666,18 @@ def _busy(events):
     return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
 
 
-def profile_step(scene, cam, seed=7):
-    """torch.profiler over one step, the forward and the backward pass
-    each in a profile of its own (each ends in a synchronize): their
-    device-busy ms against their host-clock times, the backward's top 8
-    device ops, and the device time of the gathers' backward kernels."""
+def profile_step(forward):
+    """torch.profiler over one step, ``forward()`` (the loss) then its
+    backward pass, each in a profile of its own (each ends in a
+    synchronize): their device-busy ms against their host-clock times,
+    the forward's and the backward's top 8 device ops, and the device time
+    of the gathers' backward kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from fountain_tpu_torch import bench
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    tv = scene.textures.value.detach().clone().requires_grad_(True)
     torch.cuda.synchronize()
     with profile(activities=acts) as p_fwd:
         t0 = time.perf_counter()
-        loss = bench.loss_of(bench.wave(_with_textures(scene, tv), cam, RES,
-                                        seed))
+        loss = forward()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     with profile(activities=acts) as p_bwd:
@@ -689,15 +699,16 @@ def profile_step(scene, cam, seed=7):
         return {}
     log("  profiled step (the profiler slows the host, so the shares are "
         "lower bounds): " + json.dumps(out))
-    by_name = {}
-    for e in dev["bwd"]:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (ms, count) in top:
-        log(f"  backward device {ms:8.2f} ms {count:6d}x {name[:80]}")
-    out["bwd_top"] = [dict(name=n[:120], ms=ms, count=c)
-                      for n, (ms, c) in top]
+    for half, label in (("fwd", "forward"), ("bwd", "backward")):
+        by_name = {}
+        for e in dev[half]:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (ms, count) in top:
+            log(f"  {label} device {ms:8.2f} ms {count:6d}x {name[:80]}")
+        out[f"{half}_top"] = [dict(name=n[:120], ms=ms, count=c)
+                              for n, (ms, c) in top]
     # the backward of a gather whose lanes all read one row: the [N, 96]
     # shading rows (one a iteration; float rows of 96, vectorized by 4)
     # and the env texture's [N, 3] value rows (small stride)
@@ -836,7 +847,9 @@ def phase_step(scene, cam, n_timed=4):
     out.update(furnace_albedo_grad=g_alb, furnace_emit_grad=g_emit)
 
     log("  torch.profiler over one step")
-    out["profile"] = profile_step(scene, cam)
+    tv_p = tv.detach().clone().requires_grad_(True)
+    out["profile"] = profile_step(lambda: bench.loss_of(bench.wave(
+        _with_textures(scene, tv_p), cam, RES, 7)))
     out["index_backward"] = index_backward_ms(RES * RES)
     return out
 
@@ -961,11 +974,14 @@ def phase_flagship():
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     exr = os.path.join(build, "logo_cube.exr")
-    for label, extra in (("regen", ["--regen"]), ("fixed", [])):
+    # the fixed wave at 16 spp (the file's 64 took ~120 s of the
+    # script's time limit)
+    for label, extra, spp in (("regen", ["--regen"], st.spp),
+                              ("fixed", ["--samples", "16"], 16)):
         res, img = run_cli([os.path.join(ROOT, FLAGSHIP), "-o", exr]
                            + extra, f"logo_cube {label}")
-        res["paths_per_s"] = st.xres * st.yres * st.spp / res["wall_s"]
-        log(f"  CLI {label} ({st.xres}x{st.yres}, {st.spp} spp, depth "
+        res["paths_per_s"] = st.xres * st.yres * spp / res["wall_s"]
+        log(f"  CLI {label} ({st.xres}x{st.yres}, {spp} spp, depth "
             f"{st.max_depth}): " + json.dumps(res))
         if not (res["finite"] and res["exr_equal"]):
             fail(f"logo_cube {label}: image not finite or EXR differs")
@@ -1026,6 +1042,132 @@ def phase_flagship():
     return out
 
 
+STEP_ITS = (0, 3)      # sweep launches (bounces) phase 10 checks and times
+STEP_TIMED = 3
+
+
+def logo_texel_range(scene):
+    """(first, last + 1) atlas rows of the metal sphere's roughness image
+    (every mip level): the image of the metal material whose rough_u slot
+    is an image texture."""
+    from fountain_tpu_torch.scene.types import MAT_METAL, TEX_IMAGE
+    m, tex, atlas = scene.materials, scene.textures, scene.env_images
+    for k in range(m.count):
+        tid = int(m.rough_u_tex[k])
+        if int(m.mtype[k]) == MAT_METAL and int(tex.ttype[tid]) == TEX_IMAGE:
+            img = int(tex.image_id[tid])
+            last = int(atlas.n_levels[img]) - 1
+            end = int(atlas.level_offset[img, last]) + int(
+                atlas.level_w[img, last]) * int(atlas.level_h[img, last])
+            return int(atlas.level_offset[img, 0]), end
+    fail("no metal material with an image roughness in the flagship")
+
+
+def phase_flagship_step():
+    """The flagship's differentiable step (``bench.flagship_step``:
+    tools/bench_all.py's config 5) at full width in both estimators, with
+    its gates. Fails on any."""
+    import dataclasses
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.integrator.path import PathConfig
+    scene, cam = bench.build_flagship(DEVICE)
+    res_c, cfg_c = 16, PathConfig(max_depth=3, rr_threshold=1.0, nee=True)
+    small = {dev: bench.build_flagship(dev, film_res=res_c)
+             for dev in (DEVICE, "cpu")}
+    out = {}
+    for detach in (True, False):
+        est = "detached" if detach else "attached"
+        log(f"phase 10 ({est}): the flagship step, {RES}x{RES} lanes of a "
+            f"fixed wave through {FLAGSHIP}'s 256x256 camera, depth "
+            f"{MAX_DEPTH}, NEE, RR; d/d (texture values, atlas texels) of "
+            "(r.x + r.y + r.z).sum() / 3")
+        rec = bench.measure_flagship(scene, cam, RES, STEP_TIMED, detach)
+        for key, value in rec.items():
+            log(f"  {key}: {json.dumps(value)}")
+        want = MAX_DEPTH + 1
+        if any(c != want for c in rec["launches_fwd"].values()) \
+                or any(rec["launches_bwd"].values()):
+            fail(f"flagship step launches: forward {rec['launches_fwd']}, "
+                 f"backward {rec['launches_bwd']}; expected {want} and 0")
+        if not rec["grad_finite"]:
+            fail(f"the {est} flagship gradient is not finite")
+
+        seed = STEP_TIMED + 1
+        captured = capture_sweep_inputs(
+            lambda: bench.flagship_loss(scene, cam, RES, seed, detach),
+            STEP_ITS)
+        log(f"  kernels at the step's rays (launches {STEP_ITS}: bounces 0 "
+            "and 3; gates as in phase 2)")
+        rec["kernels"] = phase_kernel_times(scene, captured, STEP_ITS)
+
+        got = {dev: bench.flagship_step(sc, cm, res_c, 0, detach, cfg_c)
+               for dev, (sc, cm) in small.items()}
+        (lg, tg, xg), (lc, tc, xc) = got[DEVICE], got["cpu"]
+        rel = lambda a, b: abs(float(a) - float(b)) / max(  # noqa: E731
+            abs(float(b)), 1e-30)
+        cmp = dict(loss=(float(lg), float(lc)), loss_rel=rel(lg, lc),
+                   tex_value_sum=(float(tg.sum()), float(tc.sum())),
+                   tex_value_rel=rel(tg.sum(), tc.sum()),
+                   texels_sum=(float(xg.sum()), float(xc.sum())),
+                   texels_rel=rel(xg.sum(), xc.sum()),
+                   finite=bool(torch.isfinite(tg).all()
+                               and torch.isfinite(xg).all()))
+        log(f"  card vs CPU at {res_c}x{res_c} lanes, depth 3 (gates: loss "
+            "rel 1e-4, summed texture-row and texel gradients rel 1e-3): "
+            + json.dumps(cmp))
+        if cmp["loss_rel"] > 1e-4 or cmp["tex_value_rel"] > 1e-3 \
+                or cmp["texels_rel"] > 1e-3 or not cmp["finite"]:
+            fail(f"the {est} flagship step differs between card and CPU")
+        rec["card_vs_cpu"] = cmp
+
+        def forward():
+            tv = scene.textures.value.detach().clone().requires_grad_(True)
+            tx = scene.env_images.texels.detach().clone().requires_grad_(
+                True)
+            return bench.flagship_loss(bench.with_params(scene, tv, tx),
+                                       cam, RES, seed, detach)
+        log("  torch.profiler over one step")
+        rec["profile"] = profile_step(forward)
+
+        if not detach:
+            rec["roughness_fd"] = flagship_roughness_fd(scene, cam, seed)
+        out[est] = rec
+    return out
+
+
+def flagship_roughness_fd(scene, cam, seed, h=1e-4):
+    """Attached estimator at full width: the metal sphere's roughness (its
+    rough_u_tex = rough_v_tex is an image texture, so the parameter is the
+    red channel of logo.png's texels, every mip level, bumped together)
+    against central differences of the same loss (summed in float64).
+    Loose gate: same sign, ratio in (0.5, 2): rays that the roughness
+    turns across visibility edges add boundary terms to the difference
+    that neither estimator carries."""
+    from fountain_tpu_torch import bench
+    lo, hi = logo_texel_range(scene)
+    _, _, g_tx = bench.flagship_step(scene, cam, RES, seed, False)
+    grad = float(g_tx[lo:hi, 0].double().sum())
+
+    def loss_at(sign):
+        tx = scene.env_images.texels.clone()
+        tx[lo:hi, 0] += sign * h
+        with torch.no_grad():
+            r = bench.wave(bench.with_params(scene, scene.textures.value,
+                                             tx), cam, RES, seed,
+                           regen=False, detach_sampling=False)
+            return float((r.x.double() + r.y.double() + r.z.double()).sum()
+                         / 3.0)
+    fd = (loss_at(1.0) - loss_at(-1.0)) / (2.0 * h)
+    ratio = grad / fd if fd != 0.0 else float("inf")
+    out = dict(texels=(lo, hi), h=h, grad=grad, fd=fd, ratio=ratio)
+    log("  attached roughness at full width (logo.png's red texels, "
+        "gate: same sign, 0.5 < ratio < 2): " + json.dumps(out))
+    if not (np.sign(grad) == np.sign(fd) and 0.5 < ratio < 2.0):
+        fail("the attached roughness gradient disagrees with central "
+             "differences")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1064,12 +1206,16 @@ def main():
     prof = phase_profile(scene, cam)
     step = phase_step(scene, cam)
     flag = phase_flagship()
+    fstep = phase_flagship_step()
     paths = {"config3_wave": wave["launches"],
              "config3_step": step["launches_per_step"],
              "logo_cube_cli_regen": flag["cli_regen"]["launches"],
              "logo_cube_cli_fixed": flag["cli_fixed"]["launches"],
              "furnace_cli_fixed": flag["furnace_fixed"]["launches"],
              "furnace_cli_regen": flag["furnace_regen"]["launches"]}
+    for est, rec in fstep.items():
+        paths[f"logo_cube_step_{est}_fwd"] = rec["launches_fwd"]
+        paths[f"logo_cube_step_{est}_bwd"] = rec["launches_bwd"]
 
     kernels = []
     for name, replaces in (
@@ -1087,6 +1233,8 @@ def main():
             max_abs_err=max(r8["max_abs_err"], times[(name, 0)]["max_abs_err"],
                             *(flag["kernels"][(name, it)]["max_abs_err"]
                               for it in FLAG_ITS),
+                            *(rec["kernels"][(name, it)]["max_abs_err"]
+                              for rec in fstep.values() for it in STEP_ITS),
                             0.0 if name == "tri_sweep_any" else err_t),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
             bound_by=r8["bound_by"], library_ms=None,
@@ -1098,7 +1246,14 @@ def main():
             it8={k: r8[k] for k in ROW_KEYS}
             | {"profiler_ms": prof.get(name, {}).get("it8_ms")},
             logo_cube={f"it{it}": {k: flag["kernels"][(name, it)][k]
-                                   for k in ROW_KEYS} for it in FLAG_ITS}))
+                                   for k in ROW_KEYS} for it in FLAG_ITS},
+            logo_cube_step={est: {f"bounce{it}": {
+                k: rec["kernels"][(name, it)][k] for k in ROW_KEYS}
+                for it in STEP_ITS} for est, rec in fstep.items()},
+            launches_per_flagship_step={
+                est: dict(fwd=rec["launches_fwd"][name],
+                          bwd=rec["launches_bwd"][name])
+                for est, rec in fstep.items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The differentiable step of BASELINE config 3 and its fwd+bwd rays/s.
+"""The differentiable steps of BASELINE configs 3 and 5, and fwd+bwd rays/s.
 
 Counterpart of the repository's root ``bench.py``: rounded_cube.ply (LBVH
 leaf order) with a matte material under the image-mapped env light
@@ -16,12 +16,25 @@ runs on the CUDA card (and raises without one) unless ``--cpu`` is given,
 and prints one JSON line {"metric": "rays_per_s_fwd_bwd", "value": ...,
 "unit": "rays/s", "vs_baseline": ...}, with a ``#`` line of details on
 stderr.
+
+The flagship step (``flagship_step``, ``measure_flagship``; timed by
+``chip_smoke.py``, no command line of its own) is the JAX package's
+``tools/bench_all.py`` measurement of config 5: testscenes/logo_cube.pbrt
+as ``load_pbrt`` builds it, one fixed wave of 512x512 lanes through the
+file's camera (depth 5, NEE, Russian roulette, zero ray-cone spread, the
+step's seed), and the gradient of (r.x + r.y + r.z).sum() / 3 with
+respect to the texture value table and the image atlas's texels (sky.exr
+and the sphere's roughness map logo.png), with either estimator. The
+file's film is 256x256, so three quarters of the lanes have a pixel
+coordinate past it, as in the JAX measurement: their rays leave the
+camera outside its field of view.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -43,6 +56,8 @@ REGEN_ITERS = 24
 CPU_RES = 32
 CPU_N_TIMED = 2
 DATA = Path(__file__).resolve().parents[1] / "data"
+FLAGSHIP = Path(__file__).resolve().parents[1] / "testscenes" / \
+    "logo_cube.pbrt"
 CFG = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
 
 
@@ -84,7 +99,8 @@ def make_ray_fn(cam, res: int, seed):
 
 
 def wave(scene, cam, res: int, seed, n_iters: int = REGEN_ITERS,
-         regen: bool = True, count_rays: bool = False):
+         regen: bool = True, count_rays: bool = False,
+         detach_sampling: bool = True, cfg: PathConfig = CFG):
     """One wave of the step's forward pass: a RegenResult, or with
     ``regen=False`` the fixed wave's radiance (and n_rays)."""
     n = res * res
@@ -92,7 +108,8 @@ def wave(scene, cam, res: int, seed, n_iters: int = REGEN_ITERS,
     sample = torch.zeros(n, dtype=torch.int32, device=scene.device)
     ray_fn = make_ray_fn(cam, res, seed)
     o, d, _ = ray_fn(lane, sample)
-    return trace_paths(scene, o, d, lane, sample, CFG, seed=seed,
+    return trace_paths(scene, o, d, lane, sample, cfg, seed=seed,
+                       detach_sampling=detach_sampling,
                        count_rays=count_rays,
                        regen_fn=ray_fn if regen else None, n_iters=n_iters)
 
@@ -126,6 +143,94 @@ def step(scene, cam, res: int, tex_value: torch.Tensor, seed,
     loss = loss_of(wave(s, cam, res, seed, n_iters, regen), regen)
     loss.backward()
     return loss.detach(), tv.grad
+
+
+def build_flagship(device=None, film_res=None):
+    """testscenes/logo_cube.pbrt as ``load_pbrt`` builds it: (scene,
+    camera) on ``device`` (default cuda). ``film_res``: the file's camera
+    with a film of that many pixels a side instead of its own 256 (small
+    waves that still cover the frame)."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.io.pbrt import load_pbrt
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    scene, cam, st = load_pbrt(str(FLAGSHIP), device=device)
+    if film_res is not None:
+        cam = make_perspective_camera(
+            tf.from_matrix(st.camera_to_world), (film_res, film_res),
+            st.fov, st.lens_radius, st.focal_dist)
+    return scene, cam
+
+
+def with_params(scene, tex_value, texels):
+    """The scene with its texture value table and atlas texels replaced."""
+    return dataclasses.replace(
+        scene, textures=dataclasses.replace(scene.textures, value=tex_value),
+        env_images=dataclasses.replace(scene.env_images, texels=texels))
+
+
+def flagship_loss(scene, cam, res: int, seed, detach_sampling: bool = True,
+                  cfg: PathConfig = CFG) -> torch.Tensor:
+    """The flagship step's loss: (r.x + r.y + r.z).sum() / 3 over one
+    fixed wave of res x res lanes."""
+    r = wave(scene, cam, res, seed, regen=False,
+             detach_sampling=detach_sampling, cfg=cfg)
+    return (r.x + r.y + r.z).sum() / 3.0
+
+
+def flagship_step(scene, cam, res: int, seed, detach_sampling: bool = True,
+                  cfg: PathConfig = CFG):
+    """One differentiable step of the flagship: (loss, d loss / d texture
+    values, d loss / d atlas texels), by autograd. The scene is not
+    changed: leaf copies of both tables replace its own."""
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    texels = scene.env_images.texels.detach().clone().requires_grad_(True)
+    loss = flagship_loss(with_params(scene, tv, texels), cam, res, seed,
+                         detach_sampling, cfg)
+    loss.backward()
+    return loss.detach(), tv.grad, texels.grad
+
+
+def measure_flagship(scene, cam, res: int, n_timed: int,
+                     detach_sampling: bool = True) -> dict:
+    """A warm-up flagship step (seed 0), then ``n_timed`` timed steps
+    (seeds 1..n_timed; host clock, each ending in a synchronize on a card)
+    with each sweep's launches in a step's forward and backward passes.
+    Returns the numbers as a JSON-ready dict."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    cuda = scene.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rays = count_rays(scene, cam, res, 0, regen=False)
+    flagship_step(scene, cam, res, 0, detach_sampling)      # warm-up
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(n_timed):
+        tv = scene.textures.value.detach().clone().requires_grad_(True)
+        texels = scene.env_images.texels.detach().clone().requires_grad_(
+            True)
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = flagship_loss(with_params(scene, tv, texels), cam, res,
+                             i + 1, detach_sampling)
+        fwd = dict(ts.launch_counts)
+        loss.backward()
+        sync()
+        times.append(time.perf_counter() - t0)
+        bwd = {k: ts.launch_counts[k] - fwd[k] for k in fwd}
+    g_tv, g_tx = tv.grad, texels.grad
+    return dict(
+        estimator="detached" if detach_sampling else "attached", res=res,
+        rays_per_wave=rays, step_s=times,
+        median_step_s=statistics.median(times),
+        rays_per_s_fwd_bwd=n_timed * rays / sum(times),
+        loss=float(loss.detach()), grad_tex_value_sum=float(g_tv.sum()),
+        grad_texels_sum=float(g_tx.sum()),
+        grad_finite=bool(torch.isfinite(g_tv).all()
+                         and torch.isfinite(g_tx).all()),
+        launches_fwd=fwd, launches_bwd=bwd,
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if cuda else None)
 
 
 def main(argv=None) -> int:

@@ -76,6 +76,43 @@ class V3:
         return (self.x != 0.0) | (self.y != 0.0) | (self.z != 0.0)
 
 
+_CONSTS = {}
+
+
+def const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A cached 0-dim tensor of ``value`` on ``like``'s device and dtype
+    (an operand of torch.maximum / torch.minimum without a fill launch)."""
+    key = (value, like.device, like.dtype)
+    c = _CONSTS.get(key)
+    if c is None:
+        c = _CONSTS[key] = torch.tensor(value, dtype=like.dtype,
+                                        device=like.device)
+    return c
+
+
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """max(x, c) with the JAX package's gradient at a tie x == c (one
+    half, as jnp.maximum; ``clamp_min`` passes all of it). For the clamps
+    whose bound the argument reaches exactly (|cos| = 1, |x / s| = 1),
+    where attached sampling differentiates them."""
+    return torch.maximum(x, const(c, x))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip: ``clamp`` with one half of the gradient at either bound."""
+    return torch.minimum(torch.maximum(x, const(lo, x)), const(hi, x))
+
+
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(x, 0)) with a zero gradient where x <= 0. The plain form's
+    backward at x == 0 is a cotangent times sqrt's infinite slope: NaN
+    when that cotangent is a masked zero, which a full-width wave meets
+    (a ray tangent to a sphere, a half vector whose cos rounds to 1, a
+    refraction at the critical angle). The value is the plain form's."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def zeros3(shape, device) -> V3:
     z = torch.zeros(shape, dtype=Float, device=device)
     return V3(z, z, z)
@@ -142,12 +179,32 @@ def coordinate_system(v1: V3):
     return v1, v2, cross(v1, v2)
 
 
+class _NextFloat(torch.autograd.Function):
+    """``nextafter`` with an identity tangent (its derivative is 1 almost
+    everywhere), as the JAX package's custom_jvp: PyTorch releases before
+    2.12 define no derivative for it."""
+
+    @staticmethod
+    def forward(ctx, x, toward: float):
+        return torch.nextafter(x, torch.full_like(x, toward))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _next_float(x: torch.Tensor, toward: float) -> torch.Tensor:
+    if x.requires_grad:
+        return _NextFloat.apply(x, toward)
+    return torch.nextafter(x, torch.full_like(x, toward))
+
+
 def next_float_up(x: torch.Tensor) -> torch.Tensor:
-    return torch.nextafter(x, torch.full_like(x, float("inf")))
+    return _next_float(x, float("inf"))
 
 
 def next_float_down(x: torch.Tensor) -> torch.Tensor:
-    return torch.nextafter(x, torch.full_like(x, float("-inf")))
+    return _next_float(x, float("-inf"))
 
 
 def offset_ray_origin(p: V3, p_err: V3, n: V3, w: V3) -> V3:
@@ -171,5 +228,5 @@ def refract(wi: V3, n: V3, eta):
     sin2_theta_i = (1.0 - cos_theta_i * cos_theta_i).clamp_min(0.0)
     sin2_theta_t = eta * eta * sin2_theta_i
     valid = sin2_theta_t < 1.0
-    cos_theta_t = torch.sqrt((1.0 - sin2_theta_t).clamp_min(0.0))
+    cos_theta_t = sqrt0(1.0 - sin2_theta_t)
     return (-wi) * eta + n * (eta * cos_theta_i - cos_theta_t), valid

@@ -17,7 +17,7 @@ import torch
 from fountain_tpu_torch.core import transform as tf
 from fountain_tpu_torch.core.vecmath import (PI, V3, coordinate_system,
                                              cross, gamma, length, normalize,
-                                             offset_ray_origin, where3)
+                                             offset_ray_origin, sqrt0, where3)
 from fountain_tpu_torch.scene.types import Scene, Spheres
 
 # Primitive kind codes in Hit.prim_kind
@@ -101,7 +101,7 @@ def _sphere_candidates(sph: Spheres, o_w: torch.Tensor, d_w: torch.Tensor,
     vlen = _length(o - (b / (2.0 * safe_a))[..., None] * d)
     disc = 4.0 * a * (r - vlen) * (r + vlen)
     has_root = (disc >= 0.0) & (a > 0.0)
-    root = torch.sqrt(disc.clamp_min(0.0))
+    root = sqrt0(disc)
     q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
     t0 = q / safe_a
     t1 = c / torch.where(q == 0.0, 1.0, q)

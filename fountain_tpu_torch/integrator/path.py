@@ -16,14 +16,18 @@ start its pixel's next sample, and the remaining iterations drain the
 paths in flight, so every started path completes; per-lane ``depth`` is
 the bounce index.
 
-Gradients: the detached-sampling estimator, as in the JAX package.
-Sampled directions and discrete choices are detached, and so is the
-geometric carry (origins, directions, cone width, previous pdf) on entry
-to every iteration, so the autograd graph never reaches back into sampled
-positions; gradients flow through f * L * cos / pdf into the material,
-texture and emitter tables. The sweeps carry no gradient and the backward
-pass never launches them. Attached sampling (``detach_sampling=False``)
-is not ported.
+Gradients: two estimators, as in the JAX package. Detached sampling
+(``detach_sampling=True``, the default): sampled directions, light
+samples, pdfs and the geometric carry (origins, directions, cone width,
+previous pdf, on entry to every iteration) are detached, so gradients
+flow through f * L * cos / pdf into the material, texture and emitter
+tables only. Attached sampling (``detach_sampling=False``): ``detach`` is
+the identity, so the chain u -> wh(alpha) -> wi -> next ray -> next hit
+(sphere intersection, the triangle's re-intersected barycentrics, light
+sample and pdf, Russian roulette's rescale) is differentiated too, which
+gives the gradient of sampled-lobe parameters such as roughness. In both,
+discrete choices and the sweeps' (t, face) carry no gradient, and the
+backward pass never launches a sweep.
 
 Known deviation from fountain, kept from the JAX package: a lane hitting a
 null-BSDF material passes through but consumes a bounce.
@@ -99,16 +103,16 @@ class _Lanes:
 
 
 def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
-                     active) -> V3:
+                     active, detach) -> V3:
     """One-light direct illumination, light-sampling branch: one shadow
     ray; the BSDF-sampling MIS branch is the continuation ray's emission
     gather in the bounce loop."""
     wo_l = world_to_local(hit, hit.wo)
     ls = sample_light(scene, light_idx, hit.p, u_light[0], u_light[1])
-    wi = V3(ls.wi.x.detach(), ls.wi.y.detach(), ls.wi.z.detach())
+    wi = detach(ls.wi)
     f, scattering_pdf = bsdf_f_pdf(sp, wo_l, world_to_local(hit, wi))
     f_cos = f * absdot(wi, hit.ns)
-    light_pdf_val = ls.pdf.detach()
+    light_pdf_val = detach(ls.pdf)
     possible = (light_pdf_val > 0.0) & ls.radiance.any_positive() \
         & f_cos.any_positive()
     o_sh = offset_ray_origin(hit.p, hit.p_err, hit.n, wi)
@@ -121,13 +125,13 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
     unocc = possible & ~occluded
     weight_l = torch.where(ls.is_delta, 1.0,
                            power_heuristic(1, light_pdf_val, 1,
-                                           scattering_pdf.detach()))
+                                           detach(scattering_pdf)))
     return where3(unocc, f_cos * ls.radiance
                   * (weight_l / light_pdf_val.clamp_min(1e-12)), 0.0)
 
 
 def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
-            count_rays: bool) -> None:
+            count_rays: bool, detach) -> None:
     """Advance every lane by one bounce, in place on ``st``. ``bounce`` is
     the bounce index: an int for the fixed wave, a per-lane int tensor
     under regeneration."""
@@ -143,14 +147,14 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     gate = (bounce == 0) | st.specular
     le_surf = emitted_radiance(scene, hit)
     if n_lights > 0:
-        lpdf_surf = light_pdf(scene, hit.light_id.clamp_min(0), ro, rd,
-                              hit=hit).detach()
+        lpdf_surf = detach(light_pdf(scene, hit.light_id.clamp_min(0), ro,
+                                     rd, hit=hit))
         w_surf = torch.where(gate, 1.0, power_heuristic(
             1, st.prev_pdf, 1, lpdf_surf))
         le_env = zeros3(ro.shape, ro.x.device)
         for k in range(n_lights):
-            pdf_k = light_pdf(scene, torch.full_like(st.lane, k), ro,
-                              rd).detach()
+            pdf_k = detach(light_pdf(scene, torch.full_like(st.lane, k), ro,
+                                     rd))
             is_inf_k = scene.lights.ltype[k] == LIGHT_INFINITE
             w_k = torch.where(gate | ~is_inf_k, 1.0, power_heuristic(
                 1, st.prev_pdf, 1, pdf_k))
@@ -182,7 +186,7 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
             n_lights - 1)
         nee_on = alive & has_non_specular(sp) & ~null_bsdf
         direct = _estimate_direct(scene, hit, sp, light_idx,
-                                  (u_sel[1], u_sel[2]), nee_on)
+                                  (u_sel[1], u_sel[2]), nee_on, detach)
         st.radiance = st.radiance + where3(
             nee_on, st.beta * direct * float(n_lights), 0.0)
         if count_rays:  # one shadow ray per NEE lane
@@ -190,11 +194,12 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
 
     # BSDF sampling for the continuation ray
     ub = rng.uniform4(st.lane, st.sample, bounce * _SLOTS + _SLOT_BSDF, seed)
-    bs = bsdf_sample(sp, world_to_local(hit, hit.wo), ub[0], ub[1], ub[2])
-    wi_w = normalize(local_to_world(hit, bs.wi))
-    wi_w = V3(wi_w.x.detach(), wi_w.y.detach(), wi_w.z.detach())
+    bs = bsdf_sample(sp, world_to_local(hit, hit.wo), ub[0], ub[1], ub[2],
+                     detach_wi=detach is _detach)
+    wi_w = detach(normalize(local_to_world(hit, bs.wi)))
     f_ok = bs.valid & bs.f.any_nonzero()
-    contrib = bs.f * (absdot(wi_w, hit.ns) / bs.pdf.detach().clamp_min(1e-12))
+    contrib = bs.f * (absdot(wi_w, hit.ns)
+                      / detach(bs.pdf).clamp_min(1e-12))
     new_beta = st.beta * where3(f_ok, contrib, 1.0)
     new_o = spawn_ray(hit, wi_w)
 
@@ -206,7 +211,7 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     st.specular = torch.where(null_bsdf, st.specular,
                               torch.where(alive, bs.is_specular, st.specular))
     st.prev_pdf = torch.where(null_bsdf, st.prev_pdf,
-                              torch.where(alive, bs.pdf.detach(),
+                              torch.where(alive, detach(bs.pdf),
                                           st.prev_pdf))
     alive = alive & (null_bsdf | f_ok)
 
@@ -214,7 +219,7 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     if cfg.rr_threshold > 0.0:
         u_rr = rng.uniform1(st.lane, st.sample, bounce * _SLOTS + _SLOT_RR,
                             seed)
-        beta_max = st.beta.max_component().detach()
+        beta_max = detach(st.beta.max_component())
         do_rr = alive & (beta_max < cfg.rr_threshold) & (bounce > 3)
         q = (1.0 - beta_max).clamp_min(0.05)
         die = do_rr & (u_rr < q)
@@ -225,12 +230,23 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     st.active = alive
 
 
+def _detach(x):
+    """The detached estimator's cut: a tensor or V3 without its graph."""
+    if isinstance(x, V3):
+        return V3(x.x.detach(), x.y.detach(), x.z.detach())
+    return x.detach()
+
+
+def _attached(x):
+    """The attached estimator's ``detach``: the identity."""
+    return x
+
+
 def _detach_geometry(st: _Lanes) -> None:
     """Detach the geometric carry on entry to an iteration, as the JAX
-    package's loop bodies do (``_geo``: origins, directions, cone width,
-    previous pdf)."""
-    st.o = V3(st.o.x.detach(), st.o.y.detach(), st.o.z.detach())
-    st.d = V3(st.d.x.detach(), st.d.y.detach(), st.d.z.detach())
+    package's loop bodies do under detached sampling (``_geo``: origins,
+    directions, cone width, previous pdf)."""
+    st.o, st.d = _detach(st.o), _detach(st.d)
     st.cone_width = st.cone_width.detach()
     st.prev_pdf = st.prev_pdf.detach()
 
@@ -250,14 +266,13 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     next sample) it is a regeneration wave of ``n_iters`` iterations and
     returns a RegenResult. n_rays counts one closest-hit ray per active
     lane per iteration plus one shadow ray per NEE lane.
+    ``detach_sampling`` picks the estimator (module docstring).
     """
-    if not detach_sampling:
-        raise NotImplementedError(
-            "attached sampling (detach_sampling=False) is not ported yet")
     if cfg.mode != "path" or not cfg.nee or cfg.emit_all_bounces:
         raise NotImplementedError(
             "only mode='path' with nee=True is ported yet")
     check_supported(scene)
+    detach = _detach if detach_sampling else _attached
     n, dev = o.shape, o.x.device
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     st = _Lanes(
@@ -275,8 +290,9 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
 
     if regen_fn is None:
         for b in range(cfg.max_depth + 1):
-            _detach_geometry(st)
-            _bounce(scene, st, b, cfg, seed, count_rays)
+            if detach_sampling:
+                _detach_geometry(st)
+            _bounce(scene, st, b, cfg, seed, count_rays, detach)
         return (st.radiance, st.n_rays) if count_rays else st.radiance
 
     k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
@@ -287,9 +303,10 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     accum = zeros3(n, dev)
     n_done = torch.zeros(n, dtype=torch.int32, device=dev)
     for it in range(k_iters):
-        _detach_geometry(st)
+        if detach_sampling:
+            _detach_geometry(st)
         was = st.active
-        _bounce(scene, st, depth, cfg, seed, count_rays)
+        _bounce(scene, st, depth, cfg, seed, count_rays, detach)
         finished = was & ~st.active
         accum = accum + where3(finished, st.radiance, 0.0)
         n_done = n_done + finished.to(torch.int32)

@@ -6,7 +6,9 @@ accumulates a range of samples into a film (a Python loop over samples),
 ``render`` is the whole image, and ``render_regen`` is one
 path-regeneration wave. Every random number depends only on (pixel lane,
 sample index), so the image is independent of batching, and rendering
-samples [0, 4) then [4, 8) equals [0, 8) in one call.
+samples [0, 4) then [4, 8) equals [0, 8) in one call. Each of them takes
+``detach_sampling``: the detached (default) or attached gradient
+estimator of ``trace_paths``.
 """
 from __future__ import annotations
 
@@ -96,7 +98,7 @@ def make_ray_fn(camera: PerspectiveCamera, xres: int, seed,
 def render_regen(scene: Scene, camera: PerspectiveCamera, xres: int,
                  yres: int, n_iters: int, cfg: PathConfig = PathConfig(),
                  seed=0, sample0=0, spp_total: int = 16,
-                 count_rays: bool = False):
+                 count_rays: bool = False, detach_sampling: bool = True):
     """Render one path-regeneration wave into a film (box filter: each
     completed sample counts 1.0 in its own pixel, so weight_sum is the
     per-pixel sample count). Runs on the scene's device. With
@@ -112,6 +114,7 @@ def render_regen(scene: Scene, camera: PerspectiveCamera, xres: int,
     # finest mip level.
     o, d, _ = ray_fn(lane, sample)
     out = trace_paths(scene, o, d, lane, sample, cfg, seed=seed,
+                      detach_sampling=detach_sampling,
                       count_rays=count_rays, regen_fn=ray_fn,
                       n_iters=n_iters)
     film = Film(r_sum=out.accum.x.reshape(yres, xres),

@@ -19,7 +19,7 @@ from fountain_tpu_torch.core.sampling import (pdf_env_alias,
                                               sample_env_alias,
                                               uniform_sample_sphere)
 from fountain_tpu_torch.core.vecmath import (PI, V3, dot, gamma, gather3,
-                                             length, normalize, where3,
+                                             length, normalize, sqrt0, where3,
                                              zeros3)
 from fountain_tpu_torch.geometry.intersect import (Hit, _sphere_candidates,
                                                    _v3)
@@ -197,7 +197,7 @@ def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
         env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
         wn = normalize(wi)
         u_env, v_env = dir_to_env_uv(wn)
-        sin_t = torch.sqrt((1.0 - wn.z ** 2).clamp_min(0.0))
+        sin_t = sqrt0(1.0 - wn.z ** 2)
         pdf_uv = pdf_env_alias(scene.env_dist, env_slot.clamp_min(0),
                                u_env, v_env)
         pdf_env = torch.where(
@@ -220,6 +220,10 @@ def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
         # point on the light does not hit itself
         o = ref_a + wi_a * 1e-3
         t_hit, ok = _single_sphere_t(one, o, wi_a)
+        # a miss lane's t is inf: its p_hit, d2 would be inf and the
+        # masked quotient's backward inf * 0 (attached sampling
+        # differentiates wi)
+        t_hit = torch.where(ok, t_hit, 0.0)
         p_hit = o + t_hit[..., None] * wi_a
         o2w = tf.Transform(one.o2w[:, 0], one.w2o[:, 0])
         n_obj = tf.transform_points(o2w.inverse, p_hit)

@@ -7,9 +7,9 @@ mirror, glass (smooth and rough), metal and plastic models.
 ``bsdf_f_pdf`` sums the non-specular lobes; ``bsdf_sample`` builds every
 candidate direction and selects one per lane by material type and a
 uniform lobe pick, so a lane draws the same random numbers as in the JAX
-package. The sampled direction is detached (detached-sampling
-estimator); f and pdf at it stay attached to the material and texture
-tables. Gathers of those tables are ``index_select``, whose backward is
+package. The sampled direction is detached under the detached-sampling
+estimator and attached otherwise; f and pdf at it stay attached to the
+material and texture tables. Gathers of those tables are ``index_select``, whose backward is
 ``index_add_``.
 """
 from __future__ import annotations
@@ -339,13 +339,17 @@ class BsdfSample:
     valid: torch.Tensor        # [N] bool
 
 
-def bsdf_sample(sp: ShadeParams, wo: V3, u_lobe, u1, u2) -> BsdfSample:
+def bsdf_sample(sp: ShadeParams, wo: V3, u_lobe, u1, u2,
+                detach_wi: bool = True) -> BsdfSample:
     """Sample a continuation direction (local frame).
 
     Candidates: the cosine hemisphere on wo's side, the GGX half-vector
     reflection, the mirror direction, specular refraction and GGX
     refraction; the material type and the lobe pick ``u_lobe < 0.5``
-    (two-lobe materials) select one. The direction is detached."""
+    (two-lobe materials) select one. ``detach_wi`` (the detached
+    estimator) severs the sampled direction; without it the chain
+    u -> wh(alpha) -> wi stays attached, so gradients of the lobe's shape
+    (roughness) flow through the direction too."""
     mtype = sp.mtype
     pick_first = u_lobe < 0.5
     c = cosine_sample_hemisphere(u1, u2)
@@ -378,7 +382,8 @@ def bsdf_sample(sp: ShadeParams, wo: V3, u_lobe, u1, u2) -> BsdfSample:
         wi_mft = normalize(wi_mft)
         wi = where3(glass_smooth, where3(pick_first, wi_mirror, wi_refr), wi)
         wi = where3(glass_rough, where3(pick_first, wi_mf, wi_mft), wi)
-    wi = V3(wi.x.detach(), wi.y.detach(), wi.z.detach())
+    if detach_wi:
+        wi = V3(wi.x.detach(), wi.y.detach(), wi.z.detach())
 
     safe_ci = mf.abs_cos_theta(wi).clamp_min(1e-8)
     f, pdf = bsdf_f_pdf(sp, wo, wi)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from fountain_tpu_torch.core.vecmath import PI, V3
+from fountain_tpu_torch.core.vecmath import PI, V3, clip, maximum, sqrt0
 
 # --- local-frame trig helpers ----------------------------------------------
 
@@ -29,7 +29,7 @@ def abs_cos_theta(w: V3):
 
 
 def sin2_theta(w: V3):
-    return (1.0 - cos2_theta(w)).clamp_min(0.0)
+    return maximum(1.0 - cos2_theta(w), 0.0)
 
 
 def tan2_theta(w: V3):
@@ -38,12 +38,12 @@ def tan2_theta(w: V3):
 
 def cos_phi(w: V3):
     s = torch.sqrt(sin2_theta(w).clamp_min(1e-36))
-    return torch.where(sin2_theta(w) == 0.0, 1.0, (w.x / s).clamp(-1.0, 1.0))
+    return torch.where(sin2_theta(w) == 0.0, 1.0, clip(w.x / s, -1.0, 1.0))
 
 
 def sin_phi(w: V3):
     s = torch.sqrt(sin2_theta(w).clamp_min(1e-36))
-    return torch.where(sin2_theta(w) == 0.0, 0.0, (w.y / s).clamp(-1.0, 1.0))
+    return torch.where(sin2_theta(w) == 0.0, 0.0, clip(w.y / s, -1.0, 1.0))
 
 
 def same_hemisphere(a: V3, b: V3):
@@ -106,7 +106,7 @@ def tr_sample_wh(u1, u2, ax, ay) -> V3:
     sin_phi_v = torch.where(iso, torch.sin(phi_i), sp)
     tan2 = torch.where(iso, tan2_i, tan2_a)
     cos_t = 1.0 / torch.sqrt(1.0 + tan2)
-    sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp_min(0.0))
+    sin_t = sqrt0(1.0 - cos_t * cos_t)
     return V3(sin_t * cos_phi_v, sin_t * sin_phi_v, cos_t)
 
 
@@ -160,7 +160,7 @@ def beckmann_sample_wh(u1, u2, ax, ay) -> V3:
     phi = torch.where(iso, phi_i, phi_a)
     tan2 = torch.where(iso, tan2_i, tan2_a)
     cos_t = 1.0 / torch.sqrt(1.0 + tan2)
-    sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp_min(0.0))
+    sin_t = sqrt0(1.0 - cos_t * cos_t)
     return V3(sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t)
 
 

@@ -255,6 +255,34 @@ def test_step_on_card_matches_cpu():
 
 
 @pytest.mark.gpu
+def test_attached_flagship_step_on_card_matches_cpu():
+    """The flagship step (``bench.flagship_step``) with attached sampling
+    at 16x16 lanes (the file's camera with a 16x16 film), depth 5, on the
+    card and on the CPU: loss rel 1e-4; the summed texture-row and texel
+    gradients rel 1e-3 and every entry finite; 6 launches of each sweep,
+    all in the forward pass."""
+    _card()
+    from fountain_tpu_torch import bench
+    got = {}
+    for dev in ("cuda", "cpu"):
+        scene, cam = bench.build_flagship(dev, film_res=16)
+        ts.reset_launch_counts()
+        loss, g_tv, g_tx = bench.flagship_step(scene, cam, 16, 3,
+                                               detach_sampling=False)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ts.launch_counts == {"tri_sweep_closest": 6,
+                                        "tri_sweep_any": 6}
+        got[dev] = (float(loss), g_tv.cpu(), g_tx.cpu())
+    (lg, tg, xg), (lc, tc, xc) = got["cuda"], got["cpu"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for g in (tg, xg):
+        assert torch.isfinite(g).all()
+    np.testing.assert_allclose(float(tg.sum()), float(tc.sum()), rtol=1e-3)
+    np.testing.assert_allclose(float(xg.sum()), float(xc.sum()), rtol=1e-3)
+
+
+@pytest.mark.gpu
 def test_step_launches_sweeps_in_forward_only():
     """One step launches each sweep once per iteration (24), all in the
     forward pass: the backward launches none."""

@@ -212,7 +212,7 @@ def _furnace():
 
 
 @pytest.mark.parametrize("case", [
-    "attached_sampling", "direct_mode", "whitted_mode", "nee_off",
+    "direct_mode", "whitted_mode", "nee_off",
     "triangle_filter", "point_light", "mesh_area_light"])
 def test_unported_options_raise(case):
     """What is not ported raises instead of computing something else."""
@@ -241,9 +241,7 @@ def test_unported_options_raise(case):
         with pytest.raises(NotImplementedError):
             scene_from_arrays(jax_arrays(attach_bvh(b.build())), "cpu")
         return
-    if case == "attached_sampling":
-        kw["detach_sampling"] = False
-    elif case == "triangle_filter":
+    if case == "triangle_filter":
         kw.update(ftype=FILTER_TRIANGLE, fradius=1.0)
     else:
         cfg = {"direct_mode": PathConfig(max_depth=2, mode="direct"),
