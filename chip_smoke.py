@@ -1094,7 +1094,7 @@ def phase_flagship_step():
 
         seed = STEP_TIMED + 1
         captured = capture_sweep_inputs(
-            lambda: bench.flagship_loss(scene, cam, RES, seed, detach),
+            lambda: bench.flagship_forward(scene, cam, RES, seed, detach),
             STEP_ITS)
         log(f"  kernels at the step's rays (launches {STEP_ITS}: bounces 0 "
             "and 3; gates as in phase 2)")
@@ -1120,14 +1120,9 @@ def phase_flagship_step():
             fail(f"the {est} flagship step differs between card and CPU")
         rec["card_vs_cpu"] = cmp
 
-        def forward():
-            tv = scene.textures.value.detach().clone().requires_grad_(True)
-            tx = scene.env_images.texels.detach().clone().requires_grad_(
-                True)
-            return bench.flagship_loss(bench.with_params(scene, tv, tx),
-                                       cam, RES, seed, detach)
         log("  torch.profiler over one step")
-        rec["profile"] = profile_step(forward)
+        rec["profile"] = profile_step(lambda: bench.flagship_forward(
+            scene, cam, RES, seed, detach)[0])
 
         if not detach:
             rec["roughness_fd"] = flagship_roughness_fd(scene, cam, seed)

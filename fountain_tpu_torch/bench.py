@@ -168,24 +168,25 @@ def with_params(scene, tex_value, texels):
         env_images=dataclasses.replace(scene.env_images, texels=texels))
 
 
-def flagship_loss(scene, cam, res: int, seed, detach_sampling: bool = True,
-                  cfg: PathConfig = CFG) -> torch.Tensor:
-    """The flagship step's loss: (r.x + r.y + r.z).sum() / 3 over one
-    fixed wave of res x res lanes."""
-    r = wave(scene, cam, res, seed, regen=False,
+def flagship_forward(scene, cam, res: int, seed,
+                     detach_sampling: bool = True, cfg: PathConfig = CFG):
+    """The flagship step's forward pass: (loss, texture value leaf, atlas
+    texel leaf). The loss is (r.x + r.y + r.z).sum() / 3 over one fixed
+    wave of res x res lanes; leaf copies of both tables replace the
+    scene's own, which is not changed."""
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    texels = scene.env_images.texels.detach().clone().requires_grad_(True)
+    r = wave(with_params(scene, tv, texels), cam, res, seed, regen=False,
              detach_sampling=detach_sampling, cfg=cfg)
-    return (r.x + r.y + r.z).sum() / 3.0
+    return (r.x + r.y + r.z).sum() / 3.0, tv, texels
 
 
 def flagship_step(scene, cam, res: int, seed, detach_sampling: bool = True,
                   cfg: PathConfig = CFG):
     """One differentiable step of the flagship: (loss, d loss / d texture
-    values, d loss / d atlas texels), by autograd. The scene is not
-    changed: leaf copies of both tables replace its own."""
-    tv = scene.textures.value.detach().clone().requires_grad_(True)
-    texels = scene.env_images.texels.detach().clone().requires_grad_(True)
-    loss = flagship_loss(with_params(scene, tv, texels), cam, res, seed,
-                         detach_sampling, cfg)
+    values, d loss / d atlas texels), by autograd."""
+    loss, tv, texels = flagship_forward(scene, cam, res, seed,
+                                        detach_sampling, cfg)
     loss.backward()
     return loss.detach(), tv.grad, texels.grad
 
@@ -206,13 +207,10 @@ def measure_flagship(scene, cam, res: int, n_timed: int,
         torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(n_timed):
-        tv = scene.textures.value.detach().clone().requires_grad_(True)
-        texels = scene.env_images.texels.detach().clone().requires_grad_(
-            True)
         ts.reset_launch_counts()
         t0 = time.perf_counter()
-        loss = flagship_loss(with_params(scene, tv, texels), cam, res,
-                             i + 1, detach_sampling)
+        loss, tv, texels = flagship_forward(scene, cam, res, i + 1,
+                                            detach_sampling)
         fwd = dict(ts.launch_counts)
         loss.backward()
         sync()

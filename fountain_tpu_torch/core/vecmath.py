@@ -81,7 +81,7 @@ _CONSTS = {}
 
 def const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A cached 0-dim tensor of ``value`` on ``like``'s device and dtype
-    (an operand of torch.maximum / torch.minimum without a fill launch)."""
+    (a binary op's operand without a fill launch)."""
     key = (value, like.device, like.dtype)
     c = _CONSTS.get(key)
     if c is None:
@@ -103,14 +103,28 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, const(lo, x)), const(hi, x))
 
 
-def sqrt0(x: torch.Tensor) -> torch.Tensor:
+class _Sqrt0(torch.autograd.Function):
     """sqrt(max(x, 0)) with a zero gradient where x <= 0. The plain form's
     backward at x == 0 is a cotangent times sqrt's infinite slope: NaN
     when that cotangent is a masked zero, which a full-width wave meets
     (a ray tangent to a sphere, a half vector whose cos rounds to 1, a
-    refraction at the critical angle). The value is the plain form's."""
-    pos = x > 0.0
-    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+    refraction at the critical angle). The value, and the gradient where
+    x > 0, are the plain form's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x.clamp_min(0.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0.0, g / (2.0 * y), 0.0)
+
+
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    return _Sqrt0.apply(x)
 
 
 def zeros3(shape, device) -> V3:
@@ -186,25 +200,19 @@ class _NextFloat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, toward: float):
-        return torch.nextafter(x, torch.full_like(x, toward))
+        return torch.nextafter(x, const(toward, x))
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def _next_float(x: torch.Tensor, toward: float) -> torch.Tensor:
-    if x.requires_grad:
-        return _NextFloat.apply(x, toward)
-    return torch.nextafter(x, torch.full_like(x, toward))
-
-
 def next_float_up(x: torch.Tensor) -> torch.Tensor:
-    return _next_float(x, float("inf"))
+    return _NextFloat.apply(x, float("inf"))
 
 
 def next_float_down(x: torch.Tensor) -> torch.Tensor:
-    return _next_float(x, float("-inf"))
+    return _NextFloat.apply(x, float("-inf"))
 
 
 def offset_ray_origin(p: V3, p_err: V3, n: V3, w: V3) -> V3:

@@ -37,13 +37,15 @@ def tan2_theta(w: V3):
 
 
 def cos_phi(w: V3):
-    s = torch.sqrt(sin2_theta(w).clamp_min(1e-36))
-    return torch.where(sin2_theta(w) == 0.0, 1.0, clip(w.x / s, -1.0, 1.0))
+    s2 = sin2_theta(w)
+    s = torch.sqrt(s2.clamp_min(1e-36))
+    return torch.where(s2 == 0.0, 1.0, clip(w.x / s, -1.0, 1.0))
 
 
 def sin_phi(w: V3):
-    s = torch.sqrt(sin2_theta(w).clamp_min(1e-36))
-    return torch.where(sin2_theta(w) == 0.0, 0.0, clip(w.y / s, -1.0, 1.0))
+    s2 = sin2_theta(w)
+    s = torch.sqrt(s2.clamp_min(1e-36))
+    return torch.where(s2 == 0.0, 0.0, clip(w.y / s, -1.0, 1.0))
 
 
 def same_hemisphere(a: V3, b: V3):

@@ -2,6 +2,7 @@
 """Time the differentiable step of two trees of the port in turns.
 
     python3 scripts/step_ab.py OTHER_ROOT [--pairs N] [--res R]
+                               [--flagship] [--forward]
 
 OTHER_ROOT is a directory that holds another tree's ``fountain_tpu_torch/``
 (for example a ``git archive`` of the parent commit unpacked under
@@ -11,13 +12,22 @@ inside its functions resolve to its own code. After one warm-up step each,
 the steps run in turns other, this, this, other (``--pairs`` times, seed
 i for the i-th step of a tree), each timed on the host clock up to a
 ``torch.cuda.synchronize()``. Prints every step time, the medians, the
-losses, and one JSON line. Needs a CUDA card; imports nothing of JAX.
+losses, and one JSON line with the card's name and power limit. Needs a
+CUDA card; imports nothing of JAX.
+
+The step is ``bench.step``: config 3's regeneration wave, or with
+``--flagship`` one fixed wave through testscenes/logo_cube.pbrt's camera
+(``load_pbrt``; res x res lanes, depth 5, NEE, RR; the gradient of the
+mean radiance with respect to the texture values). ``--forward`` times
+the step's forward wave alone under ``torch.no_grad()``, as a
+forward-only render runs it.
 """
 import argparse
 import importlib
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -25,6 +35,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "fountain_tpu_torch"
+FLAGSHIP = os.path.join(ROOT, "testscenes", "logo_cube.pbrt")
 
 
 def _ours():
@@ -41,6 +52,7 @@ def load_tree(root):
     sys.path.insert(0, root)
     try:
         importlib.import_module(PKG + ".bench")
+        importlib.import_module(PKG + ".io.pbrt")
         mods = _ours()
     finally:
         sys.path.remove(root)
@@ -51,12 +63,17 @@ def load_tree(root):
 
 
 class Tree:
-    def __init__(self, name, root, res):
+    def __init__(self, name, root, res, flagship=False, forward=False):
         self.name, self.mods = name, load_tree(root)
         with self:
-            bench = self.mods[PKG + ".bench"]
-            self.scene, self.cam = bench.build_scene(res, "cuda")
+            if flagship:
+                self.scene, self.cam, _ = self.mods[
+                    PKG + ".io.pbrt"].load_pbrt(FLAGSHIP, device="cuda")
+            else:
+                self.scene, self.cam = self.mods[PKG + ".bench"].build_scene(
+                    res, "cuda")
         self.res, self.times, self.losses = res, [], []
+        self.regen, self.forward = not flagship, forward
 
     def __enter__(self):
         self._saved = _ours()
@@ -75,8 +92,15 @@ class Tree:
             bench = self.mods[PKG + ".bench"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss, grad = bench.step(self.scene, self.cam, self.res,
-                                    self.scene.textures.value, seed)
+            if self.forward:
+                with torch.no_grad():
+                    loss = bench.loss_of(bench.wave(
+                        self.scene, self.cam, self.res, seed,
+                        regen=self.regen), self.regen)
+            else:
+                loss, _ = bench.step(self.scene, self.cam, self.res,
+                                     self.scene.textures.value, seed,
+                                     regen=self.regen)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         if record:
@@ -90,12 +114,17 @@ def main(argv=None):
     ap.add_argument("other", help="root of the other tree")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--flagship", action="store_true",
+                    help="logo_cube.pbrt's fixed wave, not config 3's")
+    ap.add_argument("--forward", action="store_true",
+                    help="time the forward wave alone, without gradients")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_ab: needs a CUDA card", file=sys.stderr)
         return 1
-    other = Tree("other", os.path.abspath(args.other), args.res)
-    this = Tree("this", ROOT, args.res)
+    other = Tree("other", os.path.abspath(args.other), args.res,
+                 args.flagship, args.forward)
+    this = Tree("this", ROOT, args.res, args.flagship, args.forward)
     for t in (other, this):
         t.step(0, record=False)                        # warm-up
     seed = {id(other): 0, id(this): 0}
@@ -107,8 +136,11 @@ def main(argv=None):
                   flush=True)
     out = {t.name: dict(step_s=t.times, median_s=statistics.median(t.times),
                         losses=t.losses) for t in (other, this)}
-    out["res"] = args.res
-    out["device"] = torch.cuda.get_device_name(0)
+    out.update(res=args.res, flagship=args.flagship, forward=args.forward,
+               device=subprocess.run(
+                   ["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], capture_output=True,
+                   text=True).stdout.strip())
     print(json.dumps(out))
     return 0
 

@@ -444,6 +444,52 @@ def test_jax_nan_ops_are_finite_in_the_port():
     assert np.isfinite(torch.autograd.grad(out, wt)[0].numpy()).all()
 
 
+def test_sqrt0_ties_have_zero_gradient():
+    """The ties behind the NaN that the attached flagship step met on the
+    card (ROADMAP.md section C), in the port: ``sqrt0``'s gradient is
+    exactly 0 where x <= 0 and the plain sqrt's where x > 0; the
+    half-vector samplers' alpha gradients are finite at u1 = 0 and at
+    u1 = 1e-8 (cos theta rounds to 1, so 1 - cos^2 is exactly 0); and a
+    ray tangent to a sphere (disc exactly 0) has a finite gradient of its
+    t and of the sphere light's pdf. ``torch.sqrt(x.clamp_min(0))`` is
+    non-finite in each of these."""
+    from fountain_tpu_torch.core.vecmath import sqrt0
+    from fountain_tpu_torch.geometry import intersect as ti
+    from fountain_tpu_torch.lights import lights as tl
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.shading import microfacet as tmf
+    x = torch.tensor([0.0, -1.0, 4.0, 1e-30], requires_grad=True)
+    (g,) = torch.autograd.grad(sqrt0(x).sum(), x)
+    assert g.tolist() == [0.0, 0.0, 0.25, float(0.5 / torch.tensor(1e-15))]
+
+    u1 = torch.tensor([0.0, 1e-8, 0.0, 1e-8])
+    u2 = torch.tensor([0.3, 0.3, 0.7, 0.7])
+    for name in ("tr_sample_wh", "beckmann_sample_wh"):
+        ax = torch.tensor([0.3, 0.3, 0.3, 0.3], requires_grad=True)
+        ay = torch.tensor([0.3, 0.3, 0.6, 0.6], requires_grad=True)
+        wh = getattr(tmf, name)(u1, u2, ax, ay)
+        assert (wh.z == 1.0).all()
+        gs = torch.autograd.grad((wh.x + wh.y + wh.z).sum(), (ax, ay))
+        assert all(torch.isfinite(g).all() for g in gs), (name, gs)
+
+    b = SceneBuilder()
+    sph = b.add_sphere(radius=1.0, mat_id=b.add_matte())
+    b.add_area_light_sphere(sph, [1.0, 1.0, 1.0])
+    scene = b.build(device="cpu")
+    o = torch.tensor([[1.0, 0.0, -3.0]], requires_grad=True)
+    d = torch.tensor([[0.0, 0.0, 1.0]], requires_grad=True)
+    t, _, ok = ti.intersect_spheres(scene.spheres, o, d,
+                                    torch.full((1,), float("inf")))
+    assert bool(ok[0]) and float(t[0].detach()) == 3.0
+    gs = torch.autograd.grad(t.sum(), (o, d))
+    assert all(torch.isfinite(g).all() for g in gs), gs
+    pdf = tl.light_pdf(scene, torch.zeros(1, dtype=torch.int32),
+                       V3(o[:, 0], o[:, 1], o[:, 2]),
+                       V3(d[:, 0], d[:, 1], d[:, 2]))
+    gs = torch.autograd.grad(pdf.sum(), (o, d))
+    assert all(torch.isfinite(g).all() for g in gs), gs
+
+
 def _free_scene():
     """A sphere-free scene: a matte octahedron and a smaller GGX metal one
     (roughness 0.2) under an image env light, and a 4x4 camera."""

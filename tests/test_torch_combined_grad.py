@@ -6,7 +6,7 @@ config 4's material on a sphere), bridged through ``scene_from_arrays``:
 
 - the detached estimator's gradients with respect to the texture values,
   the emitter scale and the env texels against the JAX package's
-  ``value_and_grad`` (4x4, 1 spp, depth 2, run eagerly: compiling it
+  ``value_and_grad`` (8x8, 1 spp, depth 2, run eagerly: compiling it
   takes XLA on the CPU longer than 15 minutes), rel 1e-3;
 - the attached estimator's roughness gradient against the port's own
   central differences (8x8, 4 spp, depth 2, rtol 5e-2:
@@ -21,13 +21,15 @@ config 4's material on a sphere), bridged through ``scene_from_arrays``:
 Why the roughness gate bumps both rows: ``add_metal(roughness=0.2)``
 gives the sphere's rough_u and rough_v slots one constant texture each,
 and the isotropic branch of ``tr_sample_wh`` (alpha_u == alpha_v) shapes
-the sampled direction with alpha_u alone, in both packages. Bumping one
-row leaves that branch, so its difference quotient is the anisotropic
-map's partial derivative, not the gradient of either row: the port's
-rough_u row -0.0388 against its one-row difference -0.0244 (rough_v
--0.0162 against -0.0307), but both rows summed -0.05506 against -0.05519
-with both bumped together (8x8, 4 spp). The material's roughness, both
-rows bumped together, stays on the isotropic branch.
+the sampled direction with alpha_u alone, in both packages: the
+estimator drops d wh / d alpha_v there, a bias of each row's gradient.
+Bumping one row leaves that branch, so its difference quotient is the
+anisotropic map's partial derivative: the port's rough_u row -0.0388
+against its one-row difference -0.0244 (rough_v -0.0162 against
+-0.0307), but both rows summed -0.05506 against -0.05519 with both
+bumped together (8x8, 4 spp). The material's roughness, both rows
+bumped together, stays on the isotropic branch; the per-row bias is
+pinned, so that a change of the estimator shows as a test change.
 
 Observed on the CPU when this file was written: loss 1.8071917 in both
 (rel 1.3e-7); gradients within 7.3e-8 relative (texture rows), 1.3e-7
@@ -107,7 +109,7 @@ def _port_loss(ts, res, spp, depth, detach_sampling, tv=None, emit=None,
 
 
 def test_combined_detached_gradients_match_jax(combined):
-    """Detached estimator, 4x4, 1 spp, depth 2: the loss and the
+    """Detached estimator, 8x8, 1 spp, depth 2: the loss and the
     gradients with respect to the texture values, the emitter scale and
     the env texels against the JAX package (rel 1e-3)."""
     from fountain_tpu.core import transform as jtf
@@ -167,6 +169,21 @@ def test_combined_attached_roughness_matches_central_differences(combined):
               - float(_port_loss(ts, 8, 4, 2, False, tv - bump))) / (2 * h)
     np.testing.assert_allclose(float(g[rows, 0].sum()), fd, rtol=5e-2,
                                atol=1e-5)
+    # the estimator's bias per row, shared with the JAX package (ROADMAP.md
+    # section C): the isotropic branch drops d wh / d alpha_v, so each
+    # row's gradient is far from its one-row difference. Pinned, so that
+    # a change of the estimator shows here.
+    pinned = ((-0.0388394, -0.0243783), (-0.0162246, -0.0306964))
+    for row, (want_g, want_fd) in zip(rows, pinned):
+        bump = torch.zeros_like(tv)
+        bump[row, 0] = h
+        with torch.no_grad():
+            fd_row = (float(_port_loss(ts, 8, 4, 2, False, tv + bump))
+                      - float(_port_loss(ts, 8, 4, 2, False, tv - bump))
+                      ) / (2 * h)
+        np.testing.assert_allclose(float(g[row, 0]), want_g, rtol=1e-4)
+        np.testing.assert_allclose(fd_row, want_fd, rtol=1e-3)
+        assert abs(float(g[row, 0]) - fd_row) > 0.3 * abs(fd_row)
 
 
 def test_combined_jax_nan_on_rays_missing_the_sphere(combined):
