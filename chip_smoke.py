@@ -20,7 +20,7 @@ Phases (any failure exits non-zero; no phase is skipped):
      kernel held to its plain version there (same gates as phase 2), CUDA
      events over 20 launches of its wrapper (``ms``) and over 30 launches
      of the library call alone with outputs preallocated (``kernel_ms``),
-     the plain version's time, the bound,
+     the plain version's time (its one call in the check), the bound,
      the pairs the cull lets through (``pairs``) and the lane-pairs a
      one-thread-per-ray kernel in lane order spends on them
      (``warp_pairs``: 32 x 128 x the blocks any lane of a warp needs);
@@ -66,7 +66,37 @@ Phases (any failure exits non-zero; no phase is skipped):
      step's rays of bounces 0 and 3; the card against the CPU at 16x16
      lanes, depth 3; torch.profiler over one step; and, attached only,
      central differences of the metal sphere's roughness image at full
-     width (loose gate: same sign, ratio in (0.5, 2)).
+     width (loose gate: same sign, ratio in (0.5, 2));
+ 11. all five BASELINE configs forward as tools/bench_all.py measures
+     them (``bench.measure_all``: a fixed wave of 512x512 lanes, depth 5,
+     NEE, RR; 8 timed waves after a warm-up): rays a wave, each held to
+     within 0.5% of the TPU's tools/bench_all_out.json (the difference
+     printed), fwd ms, rays/s and sweep launches a wave (configs 1 and 4
+     hold spheres only: 0); the fwd+bwd numbers of configs 3 and 5 are
+     phases 8 and 10's; the TPU's table is printed beside the port's, not
+     compared; the mis_box (config 2) on the card against the CPU at
+     16x16, 4 spp;
+ 12. the 277,248-face gate of tools/large_scene.py: rounded_cube.ply
+     welded and Loop-subdivided 3 levels (host time of the subdivision
+     and of the table build), both kernels against their plain versions
+     on 4,096 random rays (phase 2's gates), the closest hit against a
+     numpy float64 brute force on 512 rays from outside (0 hit
+     mismatches, t relerr <= 1e-6), 0 leaks in 100,000 interior rays, a
+     config-3 regeneration wave on the mesh with both kernels held to
+     their plain versions and timed at its iterations 0 and 8 (pairs,
+     bound), and the fixed wave's fwd+bwd step (rays, rays/s, peak
+     memory; the TPU traced 398,828 rays);
+ 13. integrator modes and filters: the furnace through the CLI with the
+     directlighting and whitted integrators (every pixel 1.5 +- 0.01 at
+     64 spp) and BSDF sampling only through the API (2 +- 0.01 at depth
+     20, 32 spp); the mis_box's fixed wave at 512x512 in each mode with
+     its sweep launches a bounce (path 1 + 1, direct 2 + 1, whitted 1 +
+     1 light, BSDF only 1 + 0), and each kernel held to its plain version
+     and timed at that wave's inputs of bounces 0 and 3 (in direct mode
+     both closest-hit launches of each, the second one the BSDF-sampled
+     ray; the path mode's wave is phase 11's config 2); logo_cube with
+     the Gaussian and triangle filters (radius 2) on the card against the
+     CPU at 32x32, 4 spp.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -107,6 +137,15 @@ def log(*a):
     print(*a, flush=True)
 
 
+T0 = time.perf_counter()
+
+
+def stamp(result):
+    """Log the seconds since the script started (after a phase)."""
+    log(f"  [{time.perf_counter() - T0:.1f} s since start]")
+    return result
+
+
 def fail(msg):
     log(f"FAILED: {msg}")
     sys.exit(1)
@@ -141,22 +180,36 @@ def random_rays(n, seed, spread=12.0):
     return o, d
 
 
+def timed_call(fn):
+    """(fn(), its ms between CUDA events), one cold call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def check(any_hit, table, o, d, cap, label):
     """One kernel against its plain version on the same rays; fails on any
     difference past the gates. Returns the max |kernel - plain| over the
-    hits' t (closest hit) or the occlusion flags (any hit)."""
+    hits' t (closest hit) or the occlusion flags (any hit), and the plain
+    call's ms."""
     from fountain_tpu_torch.geometry import tri_sweep as ts
     if any_hit:
         occ_k = ts.any_hit_kernel(table, o, d, cap)
-        occ_p = ts.any_hit_plain(table, o, d, cap)
+        occ_p, plain_ms = timed_call(
+            lambda: ts.any_hit_plain(table, o, d, cap))
         n_mis = int((occ_k != occ_p).sum())
         log(f"  {label}, any hit: rays={o.shape[0]} "
             f"occluded={int(occ_p.sum())} mismatch={n_mis}")
         if n_mis:
             fail(f"any-hit parity: {label}")
-        return 0.0
+        return 0.0, plain_ms
     t_k, i_k = ts.closest_hit_kernel(table, o, d, cap)
-    t_p, i_p = ts.closest_hit_plain(table, o, d, cap)
+    (t_p, i_p), plain_ms = timed_call(
+        lambda: ts.closest_hit_plain(table, o, d, cap))
     hit_k, hit_p = i_k >= 0, i_p >= 0
     n_hit_mis = int((hit_k != hit_p).sum())
     m = hit_k & hit_p
@@ -169,14 +222,14 @@ def check(any_hit, table, o, d, cap, label):
         f"t_rel_max={rel_max:.3e}")
     if n_hit_mis or n_idx_mis or rel_max > T_RTOL:
         fail(f"closest-hit parity: {label}")
-    return abs_max
+    return abs_max, plain_ms
 
 
 def compare(table, o, d, cap, label):
     """Both kernels against their plain versions on the same rays.
     Returns the max |t| error on hits."""
     check(True, table, o, d, cap, label)
-    return check(False, table, o, d, cap, label)
+    return check(False, table, o, d, cap, label)[0]
 
 
 def phase_parity(cube):
@@ -268,7 +321,8 @@ def phase_wave(scene, cam):
 
 def capture_sweep_inputs(run, its):
     """Run ``run()`` with each sweep wrapper recording clones of its inputs
-    (o, d, t_cap) at its launches number ``its``; returns them by
+    (o, d, t_cap) at its launches number ``its`` (or ``its[kind]`` where
+    ``its`` is a dict by kind, "closest" and "any"); returns them by
     (kind, launch)."""
     from fountain_tpu_torch.geometry import tri_sweep as ts
     captured = {}
@@ -276,9 +330,10 @@ def capture_sweep_inputs(run, its):
 
     def recorder(kind):
         calls = [0]
+        wanted = its[kind] if isinstance(its, dict) else its
 
         def wrapped(table, o, d, t_cap, *a, **k):
-            if calls[0] in its:
+            if calls[0] in wanted:
                 captured[(kind, calls[0])] = tuple(
                     x.clone() for x in (*o, *d, t_cap))
             calls[0] += 1
@@ -418,39 +473,42 @@ def kernel_only_ms(name, table, o, d, cap, reps=30):
     return events_ms(call, reps)
 
 
-def phase_kernel_times(scene, captured, its=(0, 8)):
-    """Each kernel at a wave's own inputs (the rays of iterations ``its``):
-    held to its plain version, timed, and set against its bound."""
+def phase_kernel_times(scene, captured):
+    """Each kernel at a wave's own inputs (``captured``, by kind and launch,
+    from ``capture_sweep_inputs``): held to its plain version, timed, and
+    set against its bound. The plain version's time is that of its one
+    call in the parity check. Returns the rows by (kernel, launch)."""
     from fountain_tpu_torch.core.vecmath import V3
     from fountain_tpu_torch.geometry import tri_sweep as ts
     table = scene.tri_sweep
     table_bytes = table.coef.numel() * 4 + table.bounds.numel() * 4
+    names = {"closest": "tri_sweep_closest", "any": "tri_sweep_any"}
     rows = {}
-    for kind, name in (("closest", "tri_sweep_closest"),
-                       ("any", "tri_sweep_any")):
+    # closest hit first, then by launch
+    for kind, it in sorted(captured,
+                           key=lambda k: (k[0] != "closest", k[1])):
+        name = names[kind]
         any_hit = kind == "any"
         kern = ts.any_hit_kernel if any_hit else ts.closest_hit_kernel
-        plain = ts.any_hit_plain if any_hit else ts.closest_hit_plain
-        for it in its:
-            ox, oy, oz, dx, dy, dz, cap = captured[(kind, it)]
-            o, d = V3(ox, oy, oz), V3(dx, dy, dz)
-            n = cap.shape[0]
-            err = check(any_hit, table, o, d, cap, f"{name} iteration {it}")
-            ms = time_cuda(lambda: kern(table, o, d, cap), 20)
-            k_ms = kernel_only_ms(name, table, o, d, cap)
-            plain_ms = time_cuda(lambda: plain(table, o, d, cap), 3)
-            pairs, warp_pairs = needed_pairs(table, o, d, cap, any_hit)
-            bytes_ = n * 28 + table_bytes + n * (1 if any_hit else 8)
-            t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-            t_ops = pairs * OPS_PER_PAIR / FP32_FLOPS * 1e3
-            row = dict(rays=n, live=int((cap > 1e-4).sum()), pairs=pairs,
-                       warp_pairs=warp_pairs, ms=ms, kernel_ms=k_ms,
-                       plain_ms=plain_ms,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="operations" if t_ops >= t_bytes
-                       else "bytes", max_abs_err=err)
-            log(f"  {name} iteration {it}: " + json.dumps(row))
-            rows[(name, it)] = row
+        ox, oy, oz, dx, dy, dz, cap = captured[(kind, it)]
+        o, d = V3(ox, oy, oz), V3(dx, dy, dz)
+        n = cap.shape[0]
+        err, plain_ms = check(any_hit, table, o, d, cap,
+                              f"{name} launch {it}")
+        ms = time_cuda(lambda: kern(table, o, d, cap), 20)
+        k_ms = kernel_only_ms(name, table, o, d, cap)
+        pairs, warp_pairs = needed_pairs(table, o, d, cap, any_hit)
+        bytes_ = n * 28 + table_bytes + n * (1 if any_hit else 8)
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = pairs * OPS_PER_PAIR / FP32_FLOPS * 1e3
+        row = dict(rays=n, live=int((cap > 1e-4).sum()), pairs=pairs,
+                   warp_pairs=warp_pairs, ms=ms, kernel_ms=k_ms,
+                   plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes
+                   else "bytes", max_abs_err=err)
+        log(f"  {name} launch {it}: " + json.dumps(row))
+        rows[(name, it)] = row
     return rows
 
 
@@ -966,7 +1024,7 @@ def phase_flagship():
                              seed=0, spp_total=st.spp), FLAG_ITS)
     log(f"  kernels at the first --regen wave's inputs (launches "
         f"{FLAG_ITS}; gates as in phase 2)")
-    out["kernels"] = phase_kernel_times(scene, captured, FLAG_ITS)
+    out["kernels"] = phase_kernel_times(scene, captured)
     out["profile"] = profile_wave(
         lambda: render_regen(scene, cam, st.xres, st.yres, n_iters, cfg,
                              seed=0, spp_total=st.spp), n_iters)
@@ -1098,7 +1156,7 @@ def phase_flagship_step():
             STEP_ITS)
         log(f"  kernels at the step's rays (launches {STEP_ITS}: bounces 0 "
             "and 3; gates as in phase 2)")
-        rec["kernels"] = phase_kernel_times(scene, captured, STEP_ITS)
+        rec["kernels"] = phase_kernel_times(scene, captured)
 
         got = {dev: bench.flagship_step(sc, cm, res_c, 0, detach, cfg_c)
                for dev, (sc, cm) in small.items()}
@@ -1163,6 +1221,358 @@ def flagship_roughness_fd(scene, cam, seed, h=1e-4):
     return out
 
 
+BENCH_ALL_OUT = "tools/bench_all_out.json"   # the TPU's table, for reading
+RAYS_RTOL = 0.005      # rays_per_wave against the TPU's
+
+
+def phase_all_configs(step, fstep):
+    """All five BASELINE configs forward as tools/bench_all.py measures
+    them (``bench.measure_all``), each ray count held to the TPU's, the
+    fwd+bwd numbers of configs 3 and 5 from phases 8 and 10, and the
+    mis_box's card against CPU. Fails on any gate."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    with open(os.path.join(ROOT, BENCH_ALL_OUT)) as fh:
+        tpu = {r["config"]: r for r in json.load(fh)["rows"]}
+    log(f"phase 11: the five BASELINE configs forward ({RES}x{RES} lanes "
+        f"of a fixed wave, depth {MAX_DEPTH}, NEE, RR; 8 timed waves after "
+        f"a warm-up; gate: rays_per_wave within {RAYS_RTOL:.1%} of "
+        f"{BENCH_ALL_OUT})")
+    rows = {}
+    for row in bench.measure_all(DEVICE, RES, reps=8, fwdbwd=False):
+        name = row["config"]
+        ref = tpu[name]["rays_per_wave"]
+        row.update(tpu_rays_per_wave=ref,
+                   rays_diff=row["rays_per_wave"] - ref,
+                   rays_rel=(row["rays_per_wave"] - ref) / ref)
+        log("  " + json.dumps(row))
+        if abs(row["rays_rel"]) > RAYS_RTOL:
+            fail(f"{name}: {row['rays_per_wave']} rays a wave, the TPU's "
+                 f"{ref}")
+        scene_has_faces = name not in ("furnace_empty", "metal_textured_ggx")
+        if scene_has_faces != (min(row["launches"].values()) > 0):
+            fail(f"{name}: sweep launches {row['launches']}")
+        rows[name] = row
+    rows["rounded_cube_env"].update(
+        fwdbwd_from="phase 8 (the 24-iteration regeneration step)",
+        fwdbwd_ms=step["median_step_s"] * 1e3,
+        fwdbwd_rays_per_s=step["rays_per_s_fwd_bwd"])
+    rows["logo_cube_flagship"].update(
+        fwdbwd_from="phase 10 (detached)",
+        fwdbwd_ms=fstep["detached"]["median_step_s"] * 1e3,
+        fwdbwd_rays_per_s=fstep["detached"]["rays_per_s_fwd_bwd"])
+    log("  config | port rays/wave | TPU rays/wave | port fwd ms | TPU fwd "
+        "ms | port fwd rays/s | TPU fwd rays/s | port fwd+bwd rays/s | TPU "
+        "fwd+bwd rays/s (the TPU's numbers are read from "
+        f"{BENCH_ALL_OUT}, not compared)")
+    for name, row in rows.items():
+        t = tpu[name]
+        log(f"  {name} | {row['rays_per_wave']} | {t['rays_per_wave']} | "
+            f"{row['fwd_ms']:.1f} | {t['fwd_ms']} | "
+            f"{row['fwd_rays_per_s']:.0f} | {t['fwd_rays_per_s']:.0f} | "
+            f"{row.get('fwdbwd_rays_per_s', '-')} | "
+            f"{t.get('fwdbwd_rays_per_s', '-')}")
+
+    res_c, spp_c = 16, 4
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    imgs = {dev: render(*bench.build_mis_box(dev, res_c), res_c, res_c,
+                        spp_c, cfg, seed=0).cpu() for dev in (DEVICE, "cpu")}
+    g, c = imgs[DEVICE], imgs["cpu"]
+    cmp = dict(mean_card=float(g.mean()), mean_cpu=float(c.mean()),
+               mean_rel=abs(float(g.mean() - c.mean())) / abs(
+                   float(c.mean())),
+               pixels_close=float(torch.isclose(g, c, rtol=1e-3,
+                                                atol=1e-8).all(-1).float()
+                                  .mean()))
+    log(f"  mis_box card vs CPU at {res_c}x{res_c}, {spp_c} spp (gates: "
+        "mean rel 1e-3, >= 99% of pixels rtol 1e-3): " + json.dumps(cmp))
+    if cmp["mean_rel"] > 1e-3 or cmp["pixels_close"] < 0.99:
+        fail("card and CPU renders of the mis_box disagree")
+    return dict(rows=rows, mis_box_card_vs_cpu=cmp)
+
+
+LARGE_FACES = 277_248
+N_ORACLE = 512
+
+
+def brute_closest(tv, o, d):
+    """Numpy float64 Moller-Trumbore closest hit over every face (as
+    tools/large_scene.py's oracle): (t, face), inf / -1 on a miss."""
+    v0 = tv[:, 0]
+    e1, e2 = tv[:, 1] - v0, tv[:, 2] - v0
+    best_t = np.full(len(o), np.inf)
+    best_i = np.full(len(o), -1, np.int64)
+    for s in range(0, len(tv), 8192):
+        a0, ae1, ae2 = v0[s:s + 8192][None], e1[s:s + 8192][None], \
+            e2[s:s + 8192][None]
+        od, oo = d[:, None], o[:, None]
+        pvec = np.cross(od, ae2)
+        det = (pvec * ae1).sum(-1)
+        inv = 1.0 / np.where(np.abs(det) < 1e-24, 1.0, det)
+        tvec = oo - a0
+        u = (tvec * pvec).sum(-1) * inv
+        qvec = np.cross(tvec, ae1)
+        v = (od * qvec).sum(-1) * inv
+        t = (ae2 * qvec).sum(-1) * inv
+        ok = (np.abs(det) > 1e-24) & (u >= -1e-7) & (v >= -1e-7) \
+            & (u + v <= 1 + 1e-7) & (t > 1e-4)
+        t = np.where(ok, t, np.inf)
+        ci = t.argmin(1)
+        ct = t[np.arange(len(o)), ci]
+        better = ct < best_t
+        best_t = np.where(better, ct, best_t)
+        best_i = np.where(better, s + ci, best_i)
+    return best_t, best_i
+
+
+def phase_large_scene():
+    """The JAX package's 277,248-face gate (tools/large_scene.py) on the
+    port: host build, both kernels against their plain versions, the
+    closest hit against a float64 brute force, interior leaks, kernel
+    times at a config-3 wave's inputs on this mesh, and the fixed wave's
+    fwd+bwd step. Fails on any gate."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.core.vecmath import V3
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_regen
+    log("phase 12: the large-scene gate (rounded_cube.ply welded, Loop "
+        "subdivision 3 levels)")
+    scene, cam, host = bench.build_large_scene(DEVICE, RES)
+    table = scene.tri_sweep
+    out = dict(faces=scene.triangles.count, blocks=table.n_blocks, **host)
+    log("  " + json.dumps(out))
+    if out["faces"] != LARGE_FACES:
+        fail(f"the subdivided mesh has {out['faces']} faces")
+    rng = np.random.default_rng(7)
+    o = rng.uniform(-25, 25, (4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    out["random_max_abs_err"] = compare(
+        table, v3(torch.as_tensor(o, device=DEVICE)),
+        v3(torch.as_tensor(d, device=DEVICE)),
+        torch.full((4096,), 3e38, device=DEVICE), "277k faces, 4096 random "
+        "rays")
+
+    # oracle rays from outside the mesh (as tools/large_scene.py)
+    o = rng.uniform(-30, 30, (N_ORACLE, 3))
+    o = np.where(np.abs(o) < 12, np.sign(o) * 12 + o, o)
+    d = rng.uniform(-5, 5, (N_ORACLE, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tri = scene.triangles
+    tv = tri.positions.cpu().double().numpy()[tri.indices.cpu().long()
+                                              .numpy()]
+    t0 = time.perf_counter()
+    ref_t, _ = brute_closest(tv, o, d)
+    brute_s = time.perf_counter() - t0
+    t_k, i_k = ts.closest_hit_kernel(
+        table, v3(torch.as_tensor(o, dtype=torch.float32, device=DEVICE)),
+        v3(torch.as_tensor(d, dtype=torch.float32, device=DEVICE)),
+        torch.full((N_ORACLE,), 3e38, device=DEVICE))
+    t_k, hit_k = t_k.cpu().double().numpy(), (i_k >= 0).cpu().numpy()
+    hit_ref = np.isfinite(ref_t)
+    m = hit_ref & hit_k
+    rel = np.abs(t_k[m] - ref_t[m]) / np.maximum(ref_t[m], 1e-9)
+    oracle = dict(rays=N_ORACLE, hits=int(hit_ref.sum()),
+                  hit_mismatches=int((hit_ref != hit_k).sum()),
+                  t_relerr_max=float(rel.max()) if m.any() else 0.0,
+                  brute_force_s=brute_s)
+    log("  oracle, closest hit against numpy float64 (gates: 0 hit "
+        "mismatches, t relerr <= 1e-6): " + json.dumps(oracle))
+    if oracle["hit_mismatches"] or oracle["t_relerr_max"] > 1e-6:
+        fail("the closest hit disagrees with the brute force at 277k faces")
+    out["oracle"] = oracle
+
+    nw = 100_000
+    dirs = rng.normal(size=(nw, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    zero = torch.zeros(nw, device=DEVICE)
+    _, idx = ts.closest_hit_kernel(table, V3(zero, zero, zero),
+                                   v3(torch.as_tensor(dirs, device=DEVICE)),
+                                   torch.full((nw,), 3e38, device=DEVICE))
+    out["leaks"] = int((idx < 0).sum())
+    log(f"  watertight: {out['leaks']} leaks / {nw} interior rays")
+    if out["leaks"]:
+        fail("interior rays leaked at 277k faces")
+
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    captured = capture_sweep_inputs(
+        lambda: render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
+                             seed=0), (0, 8))
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    film, n_rays = render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
+                                seed=0, count_rays=True)
+    torch.cuda.synchronize()
+    wave = dict(wave_s=time.perf_counter() - t0, rays=int(n_rays),
+                launches=dict(ts.launch_counts),
+                n_done_min=int(film.weight_sum.min()))
+    wave["rays_per_s"] = wave["rays"] / wave["wave_s"]
+    log(f"  config-3 regeneration wave on this mesh ({RES}x{RES}, "
+        f"{REGEN_ITERS} iterations, uniform light): " + json.dumps(wave))
+    if any(c != REGEN_ITERS for c in wave["launches"].values()):
+        fail(f"277k wave launches {wave['launches']}")
+    out["wave"] = wave
+    log("  kernels at the wave's inputs (iterations 0 and 8; gates as in "
+        "phase 2)")
+    out["kernels"] = phase_kernel_times(scene, captured)
+
+    # the fixed wave's fwd+bwd step, as tools/large_scene.py times it
+    tv_ = scene.textures.value
+    rays = bench.count_rays(scene, cam, RES, 0, regen=False)
+    bench.step(scene, cam, RES, tv_, 0, regen=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(4):
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grad = bench.step(scene, cam, RES, tv_, i + 1, regen=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step = dict(rays_per_wave=rays, tpu_rays_per_wave=398_828,
+                step_s=times, median_step_s=float(np.median(times)),
+                rays_per_s_fwd_bwd=4 * rays / sum(times),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches_per_step=dict(ts.launch_counts),
+                grad_finite=bool(torch.isfinite(grad).all()))
+    log(f"  fixed-wave fwd+bwd step ({RES}x{RES}, depth {MAX_DEPTH}; 4 "
+        "timed steps after a warm-up): " + json.dumps(step))
+    if not step["grad_finite"] or any(
+            c != MAX_DEPTH + 1 for c in step["launches_per_step"].values()):
+        fail("the 277k step's gradient or launches are off")
+    if abs(rays - 398_828) > RAYS_RTOL * 398_828:
+        fail(f"the 277k wave traces {rays} rays, the TPU's 398,828")
+    out["step"] = step
+    return out
+
+
+FURNACE_MODES = (("directlighting", 1.5), ("whitted", 1.5))
+MODE_BOUNCES = (0, 3)  # bounces whose sweep inputs phase 13 checks and times
+
+
+def phase_modes():
+    """The integrator modes and the film filters on the card: the furnace
+    through the CLI with the directlighting and whitted integrators, BSDF
+    sampling only through the API (tests/test_furnace.py's gates); the
+    mis_box's fixed wave in each mode with its sweep launches a bounce;
+    logo_cube with the Gaussian and triangle filters, card against CPU.
+    Fails on any gate."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    from fountain_tpu_torch.io.pbrt import load_pbrt
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    from fountain_tpu_torch.scene.film import (FILTER_GAUSSIAN,
+                                               FILTER_TRIANGLE)
+    log("phase 13: integrator modes and film filters")
+    out = {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with open(os.path.join(ROOT, FURNACE)) as fh:
+        text = fh.read()
+    for integ, want in FURNACE_MODES:
+        path = os.path.join(build, f"furnace_{integ}.pbrt")
+        with open(path, "w") as fh:
+            fh.write(text.replace('Integrator "path"',
+                                  f'Integrator "{integ}"'))
+        # depth 2: both modes stop at the first diffuse vertex, so the
+        # file's depth 10 only adds empty bounces (launches)
+        res, img = run_cli([path, "--samples", "64", "--max-depth", "2",
+                            "-o", os.path.join(build, "furnace_mode.exr")],
+                           f"furnace {integ}")
+        res.update(mean=float(img.mean()),
+                   max_dev=float(np.abs(img - want).max()))
+        log(f"  furnace CLI, Integrator \"{integ}\", 64 spp, max depth 2 "
+            f"(gate: every pixel {want} +- 0.01): " + json.dumps(res))
+        if not res["finite"] or res["max_dev"] > 0.01:
+            fail(f"furnace {integ}: off its analytic value")
+        out[f"furnace_{integ}"] = res
+    fscene, _ = bench.build_furnace(DEVICE, 16)
+    fcam = make_perspective_camera(
+        tf.look_at([0.0, -2.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (16, 16), fov_deg=60.0)
+    img = render(fscene, fcam, 16, 16, 32,
+                 PathConfig(max_depth=20, rr_threshold=0.0, nee=False,
+                            emit_all_bounces=True)).cpu().numpy()
+    bsdf = dict(mean=float(img.mean()), max_dev=float(np.abs(img - 2.0)
+                                                      .max()))
+    log("  furnace, BSDF sampling only (render API, nee=False, "
+        "emit_all_bounces, depth 20, 32 spp; gate: every pixel 2 +- 0.01): "
+        + json.dumps(bsdf))
+    if not np.isfinite(img).all() or bsdf["max_dev"] > 0.01:
+        fail("furnace, BSDF sampling only: off its analytic value")
+    out["furnace_bsdf_only"] = bsdf
+
+    scene, cam = bench.build_mis_box(DEVICE, RES)
+    for mode, kw in (("path", {}), ("direct", dict(mode="direct")),
+                     ("whitted", dict(mode="whitted")),
+                     ("bsdf_only", dict(nee=False, emit_all_bounces=True))):
+        cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, **kw)
+        want = {"path": (1, 1), "direct": (2, 1), "whitted": (1, 1),
+                "bsdf_only": (1, 0)}[mode]
+        # the warm-up wave records the kernels' inputs at bounces
+        # MODE_BOUNCES (direct mode: both closest-hit launches a bounce,
+        # the second one the BSDF-sampled ray toward the lights)
+        its = {kind: tuple(b * k + j for b in MODE_BOUNCES for j in range(k))
+               for kind, k in zip(("closest", "any"), want)}
+        captured = capture_sweep_inputs(
+            lambda: bench.wave(scene, cam, RES, 0, regen=False, cfg=cfg), its)
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            r, n_rays = bench.wave(scene, cam, RES, 1, regen=False,
+                                   count_rays=True, cfg=cfg)
+        torch.cuda.synchronize()
+        rec = dict(wave_s=time.perf_counter() - t0, rays=int(n_rays),
+                   launches=dict(ts.launch_counts),
+                   launches_per_bounce={k: v / (MAX_DEPTH + 1) for k, v in
+                                        ts.launch_counts.items()},
+                   mean=float((r.x + r.y + r.z).mean() / 3.0))
+        rec["rays_per_s"] = rec["rays"] / rec["wave_s"]
+        log(f"  mis_box fixed wave, {mode} ({RES}x{RES}, depth "
+            f"{MAX_DEPTH}): " + json.dumps(rec))
+        got = (rec["launches"]["tri_sweep_closest"],
+               rec["launches"]["tri_sweep_any"])
+        if got != tuple(w * (MAX_DEPTH + 1) for w in want) \
+                or not np.isfinite(rec["mean"]):
+            fail(f"mis_box {mode}: launches {got}")
+        log(f"  kernels at the {mode} wave's inputs (launches {its}: bounces "
+            f"{MODE_BOUNCES}; gates as in phase 2)")
+        rec["kernels"] = phase_kernel_times(scene, captured)
+        out[f"mis_box_{mode}"] = rec
+
+    fscene_c = {dev: load_pbrt(os.path.join(ROOT, FLAGSHIP), device=dev)
+                for dev in (DEVICE, "cpu")}
+    st = fscene_c["cpu"][2]
+    res_c, spp_c = 32, 4
+    cam_c = make_perspective_camera(
+        tf.from_matrix(st.camera_to_world), (res_c, res_c), st.fov,
+        st.lens_radius, st.focal_dist)
+    cfg = PathConfig(max_depth=st.max_depth, rr_threshold=1.0, nee=True)
+    for name, ftype in (("gaussian", FILTER_GAUSSIAN),
+                        ("triangle", FILTER_TRIANGLE)):
+        imgs = {dev: render(sc, cam_c, res_c, res_c, spp_c, cfg,
+                            ftype=ftype, fradius=2.0, seed=0).cpu()
+                for dev, (sc, _, _) in fscene_c.items()}
+        g, c = imgs[DEVICE], imgs["cpu"]
+        cmp = dict(mean_rel=abs(float(g.mean() - c.mean()))
+                   / abs(float(c.mean())),
+                   pixels_close=float(torch.isclose(
+                       g, c, rtol=1e-3, atol=1e-6).all(-1).float().mean()))
+        log(f"  logo_cube, PixelFilter \"{name}\" radius 2, card vs CPU at "
+            f"{res_c}x{res_c}, {spp_c} spp (gates: mean rel 1e-3, >= 99% "
+            "of pixels rtol 1e-3): " + json.dumps(cmp))
+        if cmp["mean_rel"] > 1e-3 or cmp["pixels_close"] < 0.99:
+            fail(f"logo_cube with the {name} filter: card and CPU disagree")
+        out[f"logo_cube_{name}"] = cmp
+    return out
+
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1191,17 +1601,20 @@ def main():
             fail(f"{name} spills to local memory")
 
     scene, cam = build_scene(RES, DEVICE)
-    err_t = phase_parity(scene)
-    wave, captured = phase_wave(scene, cam)
-    phase_gpu_vs_cpu()
+    err_t = stamp(phase_parity(scene))
+    wave, captured = stamp(phase_wave(scene, cam))
+    stamp(phase_gpu_vs_cpu())
     log("phase 5: kernels at the wave's shapes (iterations 0 and 8; gates "
         "as in phase 2)")
-    times = phase_kernel_times(scene, captured)
-    phase_ray_order(scene, cam)
-    prof = phase_profile(scene, cam)
-    step = phase_step(scene, cam)
-    flag = phase_flagship()
-    fstep = phase_flagship_step()
+    times = stamp(phase_kernel_times(scene, captured))
+    stamp(phase_ray_order(scene, cam))
+    prof = stamp(phase_profile(scene, cam))
+    step = stamp(phase_step(scene, cam))
+    flag = stamp(phase_flagship())
+    fstep = stamp(phase_flagship_step())
+    allc = stamp(phase_all_configs(step, fstep))
+    large = stamp(phase_large_scene())
+    modes = stamp(phase_modes())
     paths = {"config3_wave": wave["launches"],
              "config3_step": step["launches_per_step"],
              "logo_cube_cli_regen": flag["cli_regen"]["launches"],
@@ -1211,6 +1624,16 @@ def main():
     for est, rec in fstep.items():
         paths[f"logo_cube_step_{est}_fwd"] = rec["launches_fwd"]
         paths[f"logo_cube_step_{est}_bwd"] = rec["launches_bwd"]
+    # configs 1 and 4 hold spheres only: their waves launch no sweep
+    for name, row in allc["rows"].items():
+        paths[f"{name}_fixed_wave"] = row["launches"]
+    paths["large_277k_wave"] = large["wave"]["launches"]
+    paths["large_277k_step"] = large["step"]["launches_per_step"]
+    for key, rec in modes.items():
+        if "launches" in rec:
+            paths[key] = rec["launches"]
+    mis_box = {key[len("mis_box_"):]: rec for key, rec in modes.items()
+               if key.startswith("mis_box_")}
 
     kernels = []
     for name, replaces in (
@@ -1230,7 +1653,13 @@ def main():
                               for it in FLAG_ITS),
                             *(rec["kernels"][(name, it)]["max_abs_err"]
                               for rec in fstep.values() for it in STEP_ITS),
-                            0.0 if name == "tri_sweep_any" else err_t),
+                            *(large["kernels"][(name, it)]["max_abs_err"]
+                              for it in (0, 8)),
+                            *(row["max_abs_err"] for rec in mis_box.values()
+                              for (k, _), row in rec["kernels"].items()
+                              if k == name),
+                            0.0 if name == "tri_sweep_any"
+                            else max(err_t, large["random_max_abs_err"])),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
             bound_by=r8["bound_by"], library_ms=None,
             kernel_ms=r8["kernel_ms"],
@@ -1245,6 +1674,12 @@ def main():
             logo_cube_step={est: {f"bounce{it}": {
                 k: rec["kernels"][(name, it)][k] for k in ROW_KEYS}
                 for it in STEP_ITS} for est, rec in fstep.items()},
+            large_mesh={f"it{it}": {k: large["kernels"][(name, it)][k]
+                                    for k in ROW_KEYS} for it in (0, 8)},
+            mis_box={mode: {f"launch{it}": {k: row[k] for k in ROW_KEYS}
+                            for (k_, it), row in rec["kernels"].items()
+                            if k_ == name}
+                     for mode, rec in mis_box.items()},
             launches_per_flagship_step={
                 est: dict(fwd=rec["launches_fwd"][name],
                           bwd=rec["launches_bwd"][name])

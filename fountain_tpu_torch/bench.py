@@ -17,6 +17,18 @@ and prints one JSON line {"metric": "rays_per_s_fwd_bwd", "value": ...,
 "unit": "rays/s", "vs_baseline": ...}, with a ``#`` line of details on
 stderr.
 
+    python -m fountain_tpu_torch.bench --all [--res N] [--cpu]
+
+measures all five BASELINE configs as the JAX package's
+``tools/bench_all.py`` does (``measure_all``): each config's fixed wave
+(512x512 lanes, depth 5, NEE, Russian roulette, zero ray-cone spread),
+its rays, and its forward time over 8 waves after a warm-up; configs 3
+and 5 also a fwd+bwd step of that wave. One JSON line per config, with
+bench_all's keys (``rays_per_wave``, ``fwd_ms``, ``fwd_rays_per_s``,
+``fwdbwd_ms``, ``fwdbwd_rays_per_s``, ``grad_finite``) and each sweep's
+launches in a forward wave. ``build_large_scene`` builds the JAX
+package's 277,248-face gate mesh (``tools/large_scene.py``).
+
 The flagship step (``flagship_step``, ``measure_flagship``; timed by
 ``chip_smoke.py``, no command line of its own) is the JAX package's
 ``tools/bench_all.py`` measurement of config 5: testscenes/logo_cube.pbrt
@@ -39,6 +51,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from fountain_tpu_torch.core import rng
@@ -58,6 +71,7 @@ CPU_N_TIMED = 2
 DATA = Path(__file__).resolve().parents[1] / "data"
 FLAGSHIP = Path(__file__).resolve().parents[1] / "testscenes" / \
     "logo_cube.pbrt"
+FURNACE = FLAGSHIP.parent / "furnace_empty.pbrt"
 CFG = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
 
 
@@ -231,6 +245,182 @@ def measure_flagship(scene, cam, res: int, n_timed: int,
         if cuda else None)
 
 
+def build_furnace(device=None, res: int = RES):
+    """BASELINE config 1: testscenes/furnace_empty.pbrt (a matte sphere
+    of albedo 0.5 that emits L = 1 inward) with bench_all's camera
+    ((0, -2, 0) looking at the origin, 60 degree fov) at res x res."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.io.pbrt import load_pbrt
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    scene, _, _ = load_pbrt(str(FURNACE), device=device)
+    cam = make_perspective_camera(
+        tf.look_at([0.0, -2.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=60.0)
+    return scene, cam
+
+
+def build_mis_box(device=None, res: int = RES):
+    """BASELINE config 2, as bench_all builds it: a diffuse box of five
+    quads (white, red and green walls, 556 units a side) lit by a
+    130 x 104 quad mesh area light (L = 15) under its ceiling."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.geometry.bvh import attach_bvh
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    b = SceneBuilder()
+
+    def quad(p0, p1, p2, p3, mat):
+        return b.add_triangle_mesh(
+            np.asarray([p0, p1, p2, p3], np.float32),
+            np.asarray([[0, 1, 2], [0, 2, 3]], np.int32), mat_id=mat)
+
+    white = b.add_matte(kd=[0.73, 0.73, 0.73])
+    red = b.add_matte(kd=[0.65, 0.05, 0.05])
+    green = b.add_matte(kd=[0.12, 0.45, 0.15])
+    s, w = 278.0, 556.0
+    quad([0, 0, 0], [w, 0, 0], [w, w, 0], [0, w, 0], white)        # floor
+    quad([0, 0, w], [0, w, w], [w, w, w], [w, 0, w], white)        # ceiling
+    quad([0, w, 0], [w, w, 0], [w, w, w], [0, w, w], white)        # back
+    quad([0, 0, 0], [0, w, 0], [0, w, w], [0, 0, w], red)
+    quad([w, 0, 0], [w, 0, w], [w, w, w], [w, w, 0], green)
+    lm = quad([s - 65, s - 52, w - 1], [s + 65, s - 52, w - 1],
+              [s + 65, s + 52, w - 1], [s - 65, s + 52, w - 1], white)
+    b.add_area_light_mesh(lm, [15.0, 15.0, 15.0])
+    scene = attach_bvh(b.build(device=device))
+    cam = make_perspective_camera(
+        tf.look_at([s, -800.0, s], [s, 0.0, s], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=40.0)
+    return scene, cam
+
+
+def build_metal(device=None, res: int = RES):
+    """BASELINE config 4, as bench_all builds it: a copper sphere of
+    radius 6 whose GGX roughness is the image data/logo.png (u scaled by
+    2), under a uniform infinite light. Spheres only: no sweep runs."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.io.image import load_image
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    b = SceneBuilder()
+    logo = b.add_image(load_image(str(DATA / "logo.png")))
+    rough = b.add_image_texture(logo, uscale=2.0)
+    mat = b.add_metal(eta3=[0.2004, 0.9228, 1.102],
+                      k3=[3.913, 2.448, 2.137], roughness=rough)
+    b.add_sphere(radius=6.0, mat_id=mat)
+    b.add_infinite_light([1.0, 1.0, 1.0])
+    scene = b.build(device=device)
+    cam = make_perspective_camera(
+        tf.look_at([0.0, -20.0, 6.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=45.0)
+    return scene, cam
+
+
+# bench_all's five configs: name -> (build function, what a fwd+bwd step
+# differentiates: None, "textures" (the texture values) or "flagship"
+# (the texture values and the atlas texels))
+CONFIGS = {
+    "furnace_empty": (build_furnace, None),
+    "mis_box": (build_mis_box, None),
+    "rounded_cube_env": (lambda device=None, res=RES:
+                         build_scene(res, device), "textures"),
+    "metal_textured_ggx": (build_metal, None),
+    "logo_cube_flagship": (lambda device=None, res=RES:
+                           build_flagship(device), "flagship"),
+}
+
+
+def build_large_scene(device=None, res: int = RES):
+    """The JAX package's large-scene gate (``tools/large_scene.py``):
+    data/rounded_cube.ply welded and Loop-subdivided 3 times (277,248
+    faces) with its limit normals, matte kd (0.6, 0.5, 0.4),
+    under a uniform infinite light, with config 3's camera; then leaf
+    order and sweep tables (``attach_bvh``). Returns (scene, camera,
+    host seconds of the subdivision and of the build)."""
+    from fountain_tpu_torch.core import transform as tf
+    from fountain_tpu_torch.geometry.bvh import attach_bvh
+    from fountain_tpu_torch.geometry.loop_subdiv import (loop_subdivide,
+                                                         weld_vertices)
+    from fountain_tpu_torch.io.ply import load_ply
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    from fountain_tpu_torch.scene.camera import make_perspective_camera
+    mesh = load_ply(DATA / "rounded_cube.ply")
+    t0 = time.perf_counter()
+    # the PLY duplicates shared vertices (per-face normals): weld first,
+    # or Loop's boundary rules open cracks along every seam
+    p, f, nrm = loop_subdivide(*weld_vertices(mesh.positions, mesh.indices),
+                               n_levels=3)
+    t1 = time.perf_counter()
+    b = SceneBuilder()
+    mat = b.add_matte(kd=[0.6, 0.5, 0.4])
+    b.add_triangle_mesh(p, f, normals=nrm, mat_id=mat)
+    b.add_infinite_light([1.0, 1.0, 1.0])
+    scene = attach_bvh(b.build(device=device))
+    t2 = time.perf_counter()
+    cam = make_perspective_camera(
+        tf.look_at([25.0, -30.0, 18.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
+        (res, res), fov_deg=45.0)
+    return scene, cam, dict(subdivide_s=t1 - t0, build_s=t2 - t1)
+
+
+def _fixed_forward(scene, cam, res, seed, cfg=CFG):
+    """The summed radiance / 3 of one fixed wave, without autograd."""
+    with torch.no_grad():
+        r = wave(scene, cam, res, seed, regen=False, cfg=cfg)
+        return (r.x + r.y + r.z).sum() / 3.0
+
+
+def measure_config(name: str, scene, cam, res: int = RES, reps: int = 8,
+                   fwdbwd: bool = True) -> dict:
+    """bench_all's row of one config: the fixed wave's rays (seed 0), its
+    forward time (a warm-up, then ``reps`` waves of seeds 1..reps, each
+    ending in a synchronize on a card) and, for configs with a step
+    (``CONFIGS``) when ``fwdbwd``, the same for fwd+bwd; each sweep's
+    launches in one forward wave."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    sync = torch.cuda.synchronize if scene.device.type == "cuda" \
+        else (lambda: None)
+    rays = count_rays(scene, cam, res, 0, regen=False)
+    _fixed_forward(scene, cam, res, 0)
+    sync()
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        _fixed_forward(scene, cam, res, i + 1)
+        sync()
+    dt = (time.perf_counter() - t0) / reps
+    row = dict(config=name, res=res, rays_per_wave=rays, fwd_ms=dt * 1e3,
+               fwd_rays_per_s=rays / dt,
+               launches={k: v // reps for k, v in ts.launch_counts.items()})
+    params = CONFIGS[name][1]
+    if fwdbwd and params is not None:
+        def one(seed):
+            if params == "flagship":
+                _, g_tv, g_tx = flagship_step(scene, cam, res, seed)
+                return (g_tv, g_tx)
+            return (step(scene, cam, res, scene.textures.value, seed,
+                         regen=False)[1],)
+        one(0)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            grads = one(i + 1)
+            sync()
+        dt = (time.perf_counter() - t0) / reps
+        row.update(fwdbwd_ms=dt * 1e3, fwdbwd_rays_per_s=rays / dt,
+                   grad_finite=all(bool(torch.isfinite(g).all())
+                                   for g in grads))
+    return row
+
+
+def measure_all(device=None, res: int = RES, reps: int = 8,
+                fwdbwd: bool = True):
+    """``measure_config`` of every config in ``CONFIGS``, each built on
+    ``device`` (default cuda) at res x res; yields the rows in turn."""
+    for name, (build, _) in CONFIGS.items():
+        scene, cam = build(device, res)
+        yield measure_config(name, scene, cam, res, reps, fwdbwd)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -239,9 +429,15 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--no-regen", action="store_true",
                     help="the fixed wave instead of path regeneration")
+    ap.add_argument("--all", action="store_true",
+                    help="all five BASELINE configs, one JSON line each")
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else None)
     res = args.res or (CPU_RES if args.cpu else RES)
+    if args.all:
+        for row in measure_all(dev, res, reps=args.steps or 8):
+            print(json.dumps(row), flush=True)
+        return 0
     n_timed = args.steps or (CPU_N_TIMED if args.cpu else N_TIMED)
     regen = not args.no_regen
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)

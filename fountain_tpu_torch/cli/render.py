@@ -8,9 +8,12 @@ stderr lines:
         [--progress] [--profile DIR]
 
 It runs on the CUDA card, and raises without one, unless ``--cpu`` asks
-for the plain path on the CPU. ``--devices N > 1`` waits for the
-``torch.distributed`` port and raises; so do the directlighting and
-whitted integrators and the triangle and Gaussian filters.
+for the plain path on the CPU. Every integrator (path, directlighting,
+whitted, bsdf) and pixel filter (box, triangle, gaussian) of the JAX CLI
+is taken. As there, ``Integrator "bsdf"`` maps to ``nee=False`` with
+``emit_all_bounces`` left off, so emission counts only on camera and
+specular bounces. ``--devices N > 1`` waits for the ``torch.distributed``
+port and raises.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Sampling warps and the env-map alias tables (PyTorch).
 
 Counterpart of the parts of ``fountain_tpu/core/sampling.py`` that the
-path-regeneration render reaches: the warps, the power heuristic, and the
-per-light O(1) Vose alias tables for env-map importance sampling.
+renders reach: the warps (disk, hemisphere, sphere, triangle), the power
+heuristic, and the O(1) Vose alias tables (env-map texels, and the faces
+of mesh area lights).
 """
 from __future__ import annotations
 
@@ -43,6 +44,12 @@ def uniform_sample_sphere(u1, u2) -> V3:
     r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
     phi = 2.0 * PI * u2
     return V3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def uniform_sample_triangle(u1, u2):
+    """Barycentrics (b0, b1) uniform over a triangle."""
+    su0 = torch.sqrt(u1)
+    return 1.0 - su0, u2 * su0
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

@@ -1,12 +1,20 @@
 """Wavefront unidirectional path integrator with NEE + MIS (PyTorch).
 
-Counterpart of ``fountain_tpu/integrator/path.py`` in ``mode="path"``
-with NEE: the whole wavefront of lanes advances together through a bounce
-loop with an ``active`` mask; NEE picks one light per bounce and traces
-one shadow ray (the light-sampling branch), and its MIS partner is the
-next bounce's emission gather, weighted by the power heuristic against
-the continuation ray's BSDF pdf; Russian roulette after 3 bounces; every
-random number is a counter hash of (lane, sample, bounce, slot).
+Counterpart of ``fountain_tpu/integrator/path.py``: the whole wavefront
+of lanes advances together through a bounce loop with an ``active`` mask;
+Russian roulette after 3 bounces; every random number is a counter hash
+of (lane, sample, bounce, slot). Three modes, as in the JAX package:
+- ``"path"`` with NEE: one light per bounce and one shadow ray (the
+  light-sampling branch); its MIS partner is the next bounce's emission
+  gather, weighted by the power heuristic against the continuation ray's
+  BSDF pdf. With ``nee=False`` emission counts only on camera and
+  specular bounces, or on every bounce with ``emit_all_bounces`` (BSDF
+  sampling only);
+- ``"direct"``: one light per bounce with both MIS branches (a shadow
+  ray and a traced BSDF-sampled ray), continuing through specular lobes
+  only;
+- ``"whitted"``: every light, light sampling only, no MIS, continuing
+  through specular lobes only.
 
 Two waves, both Python loops: the fixed wave (``regen_fn=None``) traces
 one path per lane through ``max_depth + 1`` bounces and returns its
@@ -49,26 +57,30 @@ from fountain_tpu_torch.geometry.intersect import (Hit, scene_intersect,
                                                    spawn_ray)
 from fountain_tpu_torch.lights.lights import (emitted_radiance,
                                               environment_light_radiance,
-                                              light_pdf, sample_light)
-from fountain_tpu_torch.scene.build import check_supported
+                                              environment_radiance,
+                                              infinite_lights, light_pdf,
+                                              sample_light)
 from fountain_tpu_torch.scene.types import LIGHT_INFINITE, Scene
 from fountain_tpu_torch.shading.bsdf import (bsdf_f_pdf, bsdf_sample,
                                              gather_shading, has_non_specular,
                                              local_to_world, world_to_local)
 
-# RNG slot layout within a bounce (dims are bounce*SLOTS + slot); slot 2
-# is the JAX package's direct-mode MIS branch, not used in path mode
+# RNG slot layout within a bounce (dims are bounce*SLOTS + slot)
 _SLOTS = 4
 _SLOT_BSDF = 0      # u_lobe, u1, u2
 _SLOT_LIGHT = 1     # light select, u_light x2
+_SLOT_SCATTER = 2   # direct mode's BSDF branch; whitted's light samples
 _SLOT_RR = 3
+MODES = ("path", "direct", "whitted")
 DIM_CAMERA = 1 << 20  # camera jitter/lens dims live far above bounce dims
 
 
 @dataclass(frozen=True)
 class PathConfig:
-    """The JAX package's PathConfig; only nee=True, emit_all_bounces=False,
-    mode="path" are ported yet (trace_paths raises otherwise)."""
+    """The JAX package's PathConfig: ``mode`` is one of ``MODES``;
+    ``nee=False`` turns next-event estimation off in "path" and "direct"
+    modes, and ``emit_all_bounces`` then counts emission at every bounce
+    (BSDF sampling only)."""
     max_depth: int = 5
     rr_threshold: float = 1.0
     nee: bool = True
@@ -102,11 +114,24 @@ class _Lanes:
     n_rays: torch.Tensor
 
 
+def _shadow_target(hit: Hit, ls, wi: V3):
+    """Shadow-ray origin off the surface and its end at the light sample
+    (off the light's surface for area lights)."""
+    o_sh = offset_ray_origin(hit.p, hit.p_err, hit.n, wi)
+    target = where3(ls.is_infinite | ls.is_delta, ls.p_light,
+                    offset_ray_origin(ls.p_light, ls.p_light_err,
+                                      ls.n_light, o_sh - ls.p_light))
+    return o_sh, target
+
+
 def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
-                     active, detach) -> V3:
-    """One-light direct illumination, light-sampling branch: one shadow
-    ray; the BSDF-sampling MIS branch is the continuation ray's emission
-    gather in the bounce loop."""
+                     active, detach, u_scatter=None) -> V3:
+    """One-light direct illumination. The light-sampling branch traces
+    one shadow ray. Without ``u_scatter`` (path mode) its MIS partner is
+    the continuation ray's emission gather in the bounce loop; with it
+    (direct mode) the BSDF-sampling branch traces its own ray, before the
+    light pdf, which mesh lights take from that ray's hit. Lanes outside
+    ``active`` trace nothing (t_max < 0); the caller drops their light."""
     wo_l = world_to_local(hit, hit.wo)
     ls = sample_light(scene, light_idx, hit.p, u_light[0], u_light[1])
     wi = detach(ls.wi)
@@ -115,19 +140,64 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
     light_pdf_val = detach(ls.pdf)
     possible = (light_pdf_val > 0.0) & ls.radiance.any_positive() \
         & f_cos.any_positive()
-    o_sh = offset_ray_origin(hit.p, hit.p_err, hit.n, wi)
-    target = where3(ls.is_infinite | ls.is_delta, ls.p_light,
-                    offset_ray_origin(ls.p_light, ls.p_light_err,
-                                      ls.n_light, o_sh - ls.p_light))
-    # lanes without NEE are dead (t_max < 0): the caller drops their light
+    o_sh, target = _shadow_target(hit, ls, wi)
     t_max = torch.where(possible & active, 1.0 - SHADOW_EPSILON, -1.0)
     occluded = scene_intersect_any(scene, o_sh, target - o_sh, t_max)
     unocc = possible & ~occluded
     weight_l = torch.where(ls.is_delta, 1.0,
                            power_heuristic(1, light_pdf_val, 1,
                                            detach(scattering_pdf)))
-    return where3(unocc, f_cos * ls.radiance
-                  * (weight_l / light_pdf_val.clamp_min(1e-12)), 0.0)
+    ld = where3(unocc, f_cos * ls.radiance
+                * (weight_l / light_pdf_val.clamp_min(1e-12)), 0.0)
+    if u_scatter is None:
+        return ld
+
+    # BSDF-sampling branch (not for delta lights or specular samples)
+    bs = bsdf_sample(sp, wo_l, *u_scatter, detach_wi=detach is _detach)
+    wi_b = detach(local_to_world(hit, bs.wi))
+    f_b = bs.f * absdot(wi_b, hit.ns)
+    bsdf_ok = bs.valid & ~ls.is_delta & f_b.any_positive() \
+        & ~bs.is_specular
+    t_inf = torch.where(bsdf_ok & active, float("inf"), -1.0)
+    hit_b = scene_intersect(scene, spawn_ray(hit, wi_b), wi_b, t_inf)
+    lpdf_b = light_pdf(scene, light_idx, hit.p, wi_b, hit=hit_b)
+    bsdf_ok = bsdf_ok & (lpdf_b > 0.0)
+    weight_b = power_heuristic(1, detach(bs.pdf), 1, detach(lpdf_b))
+    same_light = hit_b.valid & (hit_b.light_id == light_idx)
+    li = where3(same_light, emitted_radiance(scene, hit_b), 0.0)
+    lt = scene.lights
+    if LIGHT_INFINITE in lt.present:
+        is_inf = lt.ltype[light_idx.clamp(0, lt.count - 1)] \
+            == LIGHT_INFINITE
+        li = li + where3(~hit_b.valid & is_inf,
+                         environment_radiance(scene, wi_b), 0.0)
+    return ld + where3(bsdf_ok, f_b * li * (
+        weight_b / detach(bs.pdf).clamp_min(1e-12)), 0.0)
+
+
+def _whitted_direct(scene: Scene, hit: Hit, sp, st: _Lanes, bounce, seed,
+                    active, detach) -> V3:
+    """Direct light from every light, light sampling only (no MIS): one
+    shadow ray per light; light ``i`` draws its sample with seed
+    ``seed + i``."""
+    wo_l = world_to_local(hit, hit.wo)
+    total = zeros3(hit.p.shape, hit.p.x.device)
+    for i in range(scene.lights.count):
+        ui = rng.uniform4(st.lane, st.sample,
+                          bounce * _SLOTS + _SLOT_SCATTER, seed + i)
+        ls = sample_light(scene, torch.full_like(st.lane, i), hit.p, ui[0],
+                          ui[1])
+        wi = detach(ls.wi)
+        f, _ = bsdf_f_pdf(sp, wo_l, world_to_local(hit, wi))
+        f_cos = f * absdot(wi, hit.ns)
+        pdf = detach(ls.pdf)
+        ok = (pdf > 0.0) & f_cos.any_positive() & ls.radiance.any_positive()
+        o_sh, target = _shadow_target(hit, ls, wi)
+        t_sh = torch.where(ok & active, 1.0 - SHADOW_EPSILON, -1.0)
+        occ = scene_intersect_any(scene, o_sh, target - o_sh, t_sh)
+        total = total + where3(ok & ~occ, f_cos * ls.radiance
+                               * (1.0 / pdf.clamp_min(1e-12)), 0.0)
+    return total
 
 
 def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
@@ -142,26 +212,33 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     if count_rays:
         st.n_rays = st.n_rays + st.active.sum()
 
-    # emitted radiance: full weight on camera/specular bounces; otherwise
-    # the continuation ray is the MIS BSDF branch of the previous vertex
+    # emitted radiance: full weight on camera/specular bounces (every
+    # bounce with emit_all_bounces); on path-mode NEE bounces the
+    # continuation ray is the MIS BSDF branch of the previous vertex
     gate = (bounce == 0) | st.specular
+    if cfg.emit_all_bounces:
+        gate = torch.ones_like(st.specular)
     le_surf = emitted_radiance(scene, hit)
-    if n_lights > 0:
+    if cfg.nee and n_lights > 0 and cfg.mode == "path":
         lpdf_surf = detach(light_pdf(scene, hit.light_id.clamp_min(0), ro,
                                      rd, hit=hit))
         w_surf = torch.where(gate, 1.0, power_heuristic(
             1, st.prev_pdf, 1, lpdf_surf))
         le_env = zeros3(ro.shape, ro.x.device)
-        for k in range(n_lights):
+        # the other lights' environment terms are zero
+        for k in infinite_lights(scene):
             pdf_k = detach(light_pdf(scene, torch.full_like(st.lane, k), ro,
                                      rd))
-            is_inf_k = scene.lights.ltype[k] == LIGHT_INFINITE
-            w_k = torch.where(gate | ~is_inf_k, 1.0, power_heuristic(
+            w_k = torch.where(gate, 1.0, power_heuristic(
                 1, st.prev_pdf, 1, pdf_k))
             le_env = le_env + environment_light_radiance(scene, k, rd) * w_k
         le_env = where3(hit.valid, 0.0, le_env)
         st.radiance = st.radiance + where3(
             st.active, st.beta * (le_surf * w_surf + le_env), 0.0)
+    elif n_lights > 0:
+        le_env = where3(hit.valid, 0.0, environment_radiance(scene, rd))
+        st.radiance = st.radiance + where3(st.active & gate,
+                                           st.beta * (le_surf + le_env), 0.0)
     else:
         st.radiance = st.radiance + where3(st.active & gate,
                                            st.beta * le_surf, 0.0)
@@ -179,18 +256,31 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     sp = gather_shading(scene, hit, tex_width=tex_width)
     null_bsdf = alive & (sp.mtype < 0)
 
-    if n_lights > 0:
+    if n_lights > 0 and (cfg.nee or cfg.mode == "whitted"):
+        nee_on = alive & has_non_specular(sp) & ~null_bsdf
+    if n_lights > 0 and cfg.mode == "whitted":
+        direct = _whitted_direct(scene, hit, sp, st, bounce, seed, nee_on,
+                                 detach)
+        st.radiance = st.radiance + where3(nee_on, st.beta * direct, 0.0)
+        if count_rays:  # one shadow ray per light and NEE lane
+            st.n_rays = st.n_rays + n_lights * nee_on.sum()
+    elif cfg.nee and n_lights > 0:
         u_sel = rng.uniform4(st.lane, st.sample,
                              bounce * _SLOTS + _SLOT_LIGHT, seed)
         light_idx = (u_sel[0] * n_lights).to(torch.int32).clamp_max(
             n_lights - 1)
-        nee_on = alive & has_non_specular(sp) & ~null_bsdf
+        u_sc = None
+        if cfg.mode == "direct":
+            u_sc = rng.uniform4(st.lane, st.sample,
+                                bounce * _SLOTS + _SLOT_SCATTER, seed)[:3]
         direct = _estimate_direct(scene, hit, sp, light_idx,
-                                  (u_sel[1], u_sel[2]), nee_on, detach)
+                                  (u_sel[1], u_sel[2]), nee_on, detach,
+                                  u_sc)
         st.radiance = st.radiance + where3(
             nee_on, st.beta * direct * float(n_lights), 0.0)
-        if count_rays:  # one shadow ray per NEE lane
-            st.n_rays = st.n_rays + nee_on.sum()
+        if count_rays:  # a shadow ray per NEE lane, + the BSDF ray in direct
+            per_lane = 1 if cfg.mode == "path" else 2
+            st.n_rays = st.n_rays + per_lane * nee_on.sum()
 
     # BSDF sampling for the continuation ray
     ub = rng.uniform4(st.lane, st.sample, bounce * _SLOTS + _SLOT_BSDF, seed)
@@ -214,6 +304,9 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
                               torch.where(alive, detach(bs.pdf),
                                           st.prev_pdf))
     alive = alive & (null_bsdf | f_ok)
+    if cfg.mode != "path":
+        # direct and whitted continue through specular lobes only
+        alive = alive & (null_bsdf | bs.is_specular)
 
     # Russian roulette
     if cfg.rr_threshold > 0.0:
@@ -265,13 +358,13 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     ``regen_fn(lane, sample) -> (o, d, spread)`` (the rays of a lane's
     next sample) it is a regeneration wave of ``n_iters`` iterations and
     returns a RegenResult. n_rays counts one closest-hit ray per active
-    lane per iteration plus one shadow ray per NEE lane.
+    lane per iteration plus the NEE rays: one shadow ray per NEE lane
+    (path mode), two (direct mode: and the BSDF-sampled ray), one per
+    light (whitted mode).
     ``detach_sampling`` picks the estimator (module docstring).
     """
-    if cfg.mode != "path" or not cfg.nee or cfg.emit_all_bounces:
-        raise NotImplementedError(
-            "only mode='path' with nee=True is ported yet")
-    check_supported(scene)
+    if cfg.mode not in MODES:
+        raise ValueError(f"unknown integrator mode {cfg.mode!r}")
     detach = _detach if detach_sampling else _attached
     n, dev = o.shape, o.x.device
     ones = torch.ones(n, dtype=torch.float32, device=dev)

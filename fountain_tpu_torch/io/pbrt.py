@@ -2,11 +2,11 @@
 
 Counterpart of ``fountain_tpu/io/pbrt.py``: the tokenizer, ``ParamSet``,
 the stack-machine ``PbrtParser`` and ``load_pbrt``, building through the
-port's ``SceneBuilder`` and ``attach_bvh``. Statements whose builder part
-is not ported yet raise NotImplementedError naming what is missing: point
-and distant lights, area lights on meshes, and ``loopsubdiv`` shapes.
-ObjectBegin/ObjectInstance and participating media are rejected, as in
-the JAX package.
+port's ``SceneBuilder`` and ``attach_bvh``: every shape (sphere,
+trianglemesh, plymesh, loopsubdiv), every light (point, distant, infinite,
+and diffuse area lights on any shape), the five materials and every
+texture class of the JAX package. ObjectBegin/ObjectInstance and
+participating media are rejected, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,10 +18,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from fountain_tpu_torch.scene.build import SceneBuilder
-
-# what raises for content whose builder part is not ported yet
-_NOT_PORTED = ("{} are not ported to fountain_tpu_torch yet: they come with "
-               "the port of the rest of BASELINE configs 1-2")
 
 # ---------------------------------------------------------------------------
 # Tokenizer
@@ -496,9 +492,19 @@ class PbrtParser:
         name = _unquote(s.next())
         p = ParamSet(s.param_list())
         b = self.builder
-        if name in ("point", "distant"):
-            raise NotImplementedError(_NOT_PORTED.format(f"{name} lights"))
-        if name == "infinite":
+        if name == "point":
+            pos = self.ctm @ np.asarray(
+                p.get_vec3("from", [0.0] * 3) + [1.0], np.float32)
+            scale = p.get_vec3("scale", [1.0] * 3)
+            intensity = np.asarray(p.get_vec3("I", [1.0] * 3)) * scale
+            b.add_point_light(pos[:3], intensity)
+        elif name == "distant":
+            frm = np.asarray(p.get_vec3("from", [0.0] * 3), np.float32)
+            to = np.asarray(p.get_vec3("to", [0.0, 0.0, 1.0]), np.float32)
+            w_from = (self.ctm @ np.append(frm, 1.0))[:3]
+            w_to = (self.ctm @ np.append(to, 1.0))[:3]
+            b.add_distant_light(w_to - w_from, p.get_vec3("L", [1.0] * 3))
+        elif name == "infinite":
             env_tex = -1
             if p.get("mapname"):
                 env_tex = self._imagemap(ParamSet(
@@ -513,9 +519,7 @@ class PbrtParser:
         p = ParamSet(s.param_list())
         b = self.builder
         mat = self.gs.material
-        if self.gs.area_light is not None and name != "sphere":
-            raise NotImplementedError(_NOT_PORTED.format(
-                f"area lights on {name} shapes"))
+        mid = None
         if mat == -1 and self.gs.area_light is None:
             mat = b.add_matte()  # pbrt default material
         if name == "sphere":
@@ -535,21 +539,29 @@ class PbrtParser:
             for key in ("uv", "st"):
                 if key in p.raw:
                     uv = p.get_all_vec2(key)
-            b.add_triangle_mesh(
+            mid = b.add_triangle_mesh(
                 positions, indices, normals=normals, uv=uv, mat_id=mat,
                 reverse_orientation=self.gs.reverse_orientation, o2w=self.ctm)
         elif name == "loopsubdiv":
-            raise NotImplementedError(_NOT_PORTED.format(
-                "loopsubdiv shapes (Loop subdivision)"))
+            from fountain_tpu_torch.geometry.loop_subdiv import loop_subdivide
+            positions = p.get_all_vec3("P")
+            indices = p.get_all_int("indices").reshape(-1, 3)
+            levels = int(p.get("levels", p.get("nlevels", 3)))
+            pos_s, idx_s, nrm_s = loop_subdivide(positions, indices, levels)
+            mid = b.add_triangle_mesh(
+                pos_s, idx_s, normals=nrm_s, mat_id=mat,
+                reverse_orientation=self.gs.reverse_orientation, o2w=self.ctm)
         elif name == "plymesh":
             from fountain_tpu_torch.io.ply import load_ply
             mesh = load_ply(os.path.join(self.base_dir, p.get("filename")))
-            b.add_triangle_mesh(
+            mid = b.add_triangle_mesh(
                 mesh.positions, mesh.indices, normals=mesh.normals,
                 uv=mesh.uv, mat_id=mat,
                 reverse_orientation=self.gs.reverse_orientation, o2w=self.ctm)
         else:
             raise ValueError(f"unsupported shape {name}")
+        if mid is not None and self.gs.area_light is not None:
+            b.add_area_light_mesh(mid, self.gs.area_light)
 
 
 def load_pbrt(path: str, device=None):

@@ -1,12 +1,19 @@
 """Light emission, sampling and pdf queries (PyTorch).
 
-Counterpart of the parts of ``fountain_tpu/lights/lights.py`` that
-config 3 and the furnace reach: area emission at hits, the environment
-radiance of escaped rays, and the infinite-light (uniform sphere, or the
-per-light env-map alias table) and sphere-area-light branches of
-``sample_light`` and ``light_pdf``. The emission table ``lights.emit``
-stays differentiable. Point, distant and mesh area lights are not ported
-yet; scenes that use them are refused at setup (``scene.build``).
+Counterpart of ``fountain_tpu/lights/lights.py``: area emission at hits
+(spheres and mesh faces, through ``hit.light_id``), the environment
+radiance of escaped rays, and every light type's branch of
+``sample_light`` and ``light_pdf``: point (1 / r^2 falloff), distant
+(endpoint past the scene bounds), infinite (uniform sphere, or the
+per-light env-map alias table), sphere area lights (uniform point on the
+sphere, pdf at the first hit along wi) and mesh area lights (a face drawn
+by the light's alias rows of ``Scene.light_tri``, in SceneBuilder's
+original face order, then a uniform point on it; the pdf of a direction
+comes from the traced hit along it). Every lane carries its own light
+index, and each type's result is selected per lane; a branch is built
+only when the scene holds that type (``Lights.present``), which gives
+the same values on every lane, with fewer launches. The emission table
+``lights.emit`` stays differentiable.
 """
 from __future__ import annotations
 
@@ -17,13 +24,15 @@ import torch
 from fountain_tpu_torch.core import transform as tf
 from fountain_tpu_torch.core.sampling import (pdf_env_alias,
                                               sample_env_alias,
-                                              uniform_sample_sphere)
-from fountain_tpu_torch.core.vecmath import (PI, V3, dot, gamma, gather3,
-                                             length, normalize, sqrt0, where3,
-                                             zeros3)
+                                              uniform_sample_sphere,
+                                              uniform_sample_triangle)
+from fountain_tpu_torch.core.vecmath import (PI, V3, cross, dot, gamma,
+                                             gather3, length, normalize,
+                                             sqrt0, where3, zeros3)
 from fountain_tpu_torch.geometry.intersect import (Hit, _sphere_candidates,
                                                    _v3)
-from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE, LIGHT_DISTANT,
+from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE,
+                                            LIGHT_AREA_TRI, LIGHT_DISTANT,
                                             LIGHT_INFINITE, LIGHT_POINT,
                                             Scene, Spheres)
 
@@ -80,11 +89,19 @@ def emitted_radiance(scene: Scene, hit: Hit) -> V3:
 
 
 def environment_radiance(scene: Scene, d: V3) -> V3:
-    """Total radiance from infinite lights for escaped rays."""
+    """Total radiance from infinite lights for escaped rays (the other
+    lights' terms are zero and are not built)."""
     total = zeros3(d.shape, d.x.device)
-    for i in range(scene.lights.count):
+    for i in infinite_lights(scene):
         total = total + environment_light_radiance(scene, i, d)
     return total
+
+
+def infinite_lights(scene: Scene):
+    """Indices of the scene's infinite lights (host-side, from the table
+    read at build)."""
+    return [i for i, t in enumerate(scene.lights.types)
+            if t == LIGHT_INFINITE]
 
 
 def environment_light_radiance(scene: Scene, i: int, d: V3) -> V3:
@@ -116,49 +133,114 @@ def _sphere_surface_at(scene: Scene, sphere_idx, p_obj_unit: V3):
     return _v3(p_w), _v3(p_err), n_w
 
 
+def _pick(sel, a, b):
+    """``a`` where ``sel``, else ``b`` (0 while no branch has set it)."""
+    return torch.where(sel, a, 0.0 if b is None else b)
+
+
+def _mesh_light_point(scene: Scene, li, u1, u2):
+    """A point on mesh light ``li`` (per lane): its face drawn in
+    proportion to area by the light's alias rows of ``light_tri``
+    (original face order), then uniform on the face. Returns the point,
+    its error bound and the face's (orientation-flipped) normal."""
+    lt = scene.lights
+    start = lt.tri_start[li]
+    count = lt.tri_count[li].clamp_min(1)
+    f0 = u1 * count.to(torch.float32)
+    k = torch.minimum(f0.to(torch.int32).clamp_min(0), count - 1)
+    frac = (f0 - k.to(torch.float32)).clamp(0.0, 1.0 - 1e-7)
+    j0 = start + k
+    prob = scene.light_tri[:, 0].index_select(0, j0.long())
+    alias = scene.light_tri[:, 1].index_select(0, j0.long()).detach()
+    take_alias = frac >= prob
+    face = torch.where(take_alias, alias.to(torch.int32), j0)
+    rc = scene.light_tri.index_select(0, face.long())
+    # the residual of the alias cell, remapped to a fresh uniform
+    resid = torch.where(take_alias,
+                        (frac - prob) / (1.0 - prob).clamp_min(1e-12),
+                        frac / prob.clamp_min(1e-12)).clamp(0.0, 1.0)
+    p0, p1, p2 = (V3(rc[:, c], rc[:, c + 1], rc[:, c + 2])
+                  for c in (2, 5, 8))
+    b0, b1 = uniform_sample_triangle(resid, u2)
+    b2 = 1.0 - b0 - b1
+    p = p0 * b0 + p1 * b1 + p2 * b2
+    p_err = ((p0 * b0).abs() + (p1 * b1).abs() + (p2 * b2).abs()) * gamma(6)
+    n = normalize(cross(p1 - p0, p2 - p0))
+    return p, p_err, where3(rc[:, 11] > 0.5, -n, n)
+
+
 def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
     """Sample incident illumination from per-lane light ``light_idx``.
-    Env-mapped infinite lights importance-sample scene.env_dist; plain
-    infinite lights use uniform-sphere directions; sphere area lights take
-    a uniform point on the sphere, with the pdf converted to solid angle
-    at the first intersection along wi."""
+    Point and distant lights are delta lights (pdf 1); env-mapped
+    infinite lights importance-sample scene.env_dist, plain ones take
+    uniform-sphere directions; area lights take a uniform point on their
+    shape (a mesh light's face in proportion to its area), with the pdf
+    converted to solid angle."""
     lt = scene.lights
+    present = lt.present
     n, dev = ref_p.shape, ref_p.x.device
     li = light_idx.clamp(0, max(lt.count - 1, 0))
     ltype = lt.ltype[li]
     emit = gather3(lt.emit, li)
-    env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
     is_delta = (ltype == LIGHT_POINT) | (ltype == LIGHT_DISTANT)
     is_infinite = (ltype == LIGHT_INFINITE) | (ltype == LIGHT_DISTANT)
-
-    # infinite light: endpoint at 2 * world radius
-    sel = ltype == LIGHT_INFINITE
-    wi_u = uniform_sample_sphere(u1, u2)
-    pdf_u = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32, device=dev)
-    rad_u = emit
-    if scene.env_dist is not None:
-        slot = env_slot.clamp_min(0)
-        ue, ve, pdf_uv = sample_env_alias(scene.env_dist, slot, u1, u2)
-        wi_e, sin_t = env_uv_to_dir(ue, ve)
-        pdf_e = torch.where(
-            sin_t > 0.0,
-            pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
-        rad_e = emit * _eval_env_tex(scene, env_tex, ue, ve)
-        has_env = (env_tex >= 0) & (env_slot >= 0)
-        wi_u = where3(has_env, wi_e, wi_u)
-        pdf_u = torch.where(has_env, pdf_e, pdf_u)
-        rad_u = where3(has_env, rad_e, rad_u)
-    elif scene.env_images is not None:
-        u_env, v_env = dir_to_env_uv(wi_u)
-        rad_e = emit * _eval_env_tex(scene, env_tex, u_env, v_env)
-        rad_u = where3(env_tex >= 0, rad_e, rad_u)
-    p_inf = ref_p + wi_u * (2.0 * scene.world_radius)
     zero = zeros3(n, dev)
-    radiance, wi = where3(sel, rad_u, zero), where3(sel, wi_u, zero)
-    pdf, p_light = torch.where(sel, pdf_u, 0.0), where3(sel, p_inf, zero)
-    p_light_err = n_light = zero
+    radiance = wi = p_light = p_light_err = n_light = zero
+    pdf = None
 
-    if scene.spheres.count > 0:
+    if LIGHT_POINT in present:
+        # I / r^2 toward the light's position
+        sel = ltype == LIGHT_POINT
+        pos = gather3(lt.pos, li)
+        d_vec = pos - ref_p
+        r2 = dot(d_vec, d_vec).clamp_min(1e-12)
+        wi = where3(sel, normalize(d_vec), wi)
+        radiance = where3(sel, emit * (1.0 / r2), radiance)
+        pdf = _pick(sel, 1.0, pdf)
+        p_light = where3(sel, pos, p_light)
+
+    if LIGHT_DISTANT in present:
+        # ``dir`` points from the light: wi = -dir, the endpoint outside
+        # the scene's bounding sphere
+        sel = ltype == LIGHT_DISTANT
+        wi_d = normalize(-gather3(lt.dir, li))
+        wi = where3(sel, wi_d, wi)
+        radiance = where3(sel, emit, radiance)
+        pdf = _pick(sel, 1.0, pdf)
+        p_light = where3(sel, ref_p + wi_d * (2.0 * scene.world_radius),
+                         p_light)
+
+    if LIGHT_INFINITE in present:
+        # endpoint at 2 * world radius
+        sel = ltype == LIGHT_INFINITE
+        env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
+        wi_u = uniform_sample_sphere(u1, u2)
+        pdf_u = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32,
+                           device=dev)
+        rad_u = emit
+        if scene.env_dist is not None:
+            slot = env_slot.clamp_min(0)
+            ue, ve, pdf_uv = sample_env_alias(scene.env_dist, slot, u1, u2)
+            wi_e, sin_t = env_uv_to_dir(ue, ve)
+            pdf_e = torch.where(
+                sin_t > 0.0,
+                pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
+            rad_e = emit * _eval_env_tex(scene, env_tex, ue, ve)
+            has_env = (env_tex >= 0) & (env_slot >= 0)
+            wi_u = where3(has_env, wi_e, wi_u)
+            pdf_u = torch.where(has_env, pdf_e, pdf_u)
+            rad_u = where3(has_env, rad_e, rad_u)
+        elif scene.env_images is not None:
+            u_env, v_env = dir_to_env_uv(wi_u)
+            rad_e = emit * _eval_env_tex(scene, env_tex, u_env, v_env)
+            rad_u = where3(env_tex >= 0, rad_e, rad_u)
+        wi = where3(sel, wi_u, wi)
+        radiance = where3(sel, rad_u, radiance)
+        pdf = _pick(sel, pdf_u, pdf)
+        p_light = where3(sel, ref_p + wi_u * (2.0 * scene.world_radius),
+                         p_light)
+
+    if LIGHT_AREA_SPHERE in present and scene.spheres.count > 0:
         sel = ltype == LIGHT_AREA_SPHERE
         sphere_idx = lt.shape_id[li].clamp(0, scene.spheres.count - 1)
         p_s, p_s_err, n_s = _sphere_surface_at(
@@ -171,10 +253,33 @@ def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
         wi = where3(sel, wi_s, wi)
         radiance = where3(sel & ~degenerate, rad_s,
                           where3(sel, 0.0, radiance))
-        pdf = torch.where(sel, torch.where(degenerate, 0.0, pdf_s), pdf)
+        pdf = _pick(sel, torch.where(degenerate, 0.0, pdf_s), pdf)
         p_light = where3(sel, p_s, p_light)
         p_light_err = where3(sel, p_s_err, p_light_err)
         n_light = where3(sel, n_s, n_light)
+
+    if LIGHT_AREA_TRI in present and scene.light_tri is not None:
+        # pdf = d^2 / (|cos| total area): uniform over the light's area
+        sel = ltype == LIGHT_AREA_TRI
+        p_t, p_t_err, n_t = _mesh_light_point(scene, li, u1, u2)
+        d_t = p_t - ref_p
+        d2 = dot(d_t, d_t).clamp_min(1e-20)
+        wi_t = d_t * (1.0 / torch.sqrt(d2))
+        cos_l = dot(n_t, -wi_t)
+        area = lt.area[li].clamp_min(1e-20)
+        pdf_t = torch.where(cos_l.abs() > 1e-8,
+                            d2 / (cos_l.abs() * area), 0.0)
+        rad_t = where3(cos_l > 0.0, emit, 0.0)
+        degenerate = d2 < 1e-16
+        wi = where3(sel, wi_t, wi)
+        radiance = where3(sel & ~degenerate, rad_t,
+                          where3(sel, 0.0, radiance))
+        pdf = _pick(sel, torch.where(degenerate, 0.0, pdf_t), pdf)
+        p_light = where3(sel, p_t, p_light)
+        p_light_err = where3(sel, p_t_err, p_light_err)
+        n_light = where3(sel, n_t, n_light)
+    if pdf is None:
+        pdf = torch.zeros(n, dtype=torch.float32, device=dev)
     return LightSample(
         radiance=radiance, wi=wi, pdf=pdf, p_light=p_light,
         p_light_err=p_light_err, n_light=n_light, is_delta=is_delta,
@@ -184,30 +289,44 @@ def sample_light(scene: Scene, light_idx, ref_p: V3, u1, u2) -> LightSample:
 def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
               hit: Hit = None) -> torch.Tensor:
     """Solid-angle pdf that ``sample_light`` would pick direction wi:
-    1/4pi for a uniform infinite light, the alias-table pdf with the
-    sin(theta) Jacobian for an env-mapped one, distance^2 / (|cos| area)
-    at the first hit along wi for a sphere area light, 0 otherwise."""
+    0 for delta lights, 1/4pi for a uniform infinite light, the
+    alias-table pdf with the sin(theta) Jacobian for an env-mapped one,
+    distance^2 / (|cos| area) at the first hit along wi for a sphere area
+    light, and for a mesh area light the same at ``hit``, the already
+    traced hit along wi (0 without it, or where it is not on the light)."""
     lt = scene.lights
+    present = lt.present
     n, dev = ref_p.shape, ref_p.x.device
     li = light_idx.clamp(0, max(lt.count - 1, 0))
     ltype = lt.ltype[li]
-    pdf_inf = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32,
-                         device=dev)
-    if scene.env_dist is not None:
-        env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
-        wn = normalize(wi)
-        u_env, v_env = dir_to_env_uv(wn)
-        sin_t = sqrt0(1.0 - wn.z ** 2)
-        pdf_uv = pdf_env_alias(scene.env_dist, env_slot.clamp_min(0),
-                               u_env, v_env)
-        pdf_env = torch.where(
-            sin_t > 0.0,
-            pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
-        has_env = (env_tex >= 0) & (env_slot >= 0)
-        pdf_inf = torch.where(has_env, pdf_env, pdf_inf)
-    pdf = torch.where(ltype == LIGHT_INFINITE, pdf_inf, 0.0)
+    pdf = None
+    if LIGHT_INFINITE in present:
+        pdf_inf = torch.full(n, 1.0 / (4.0 * PI), dtype=torch.float32,
+                             device=dev)
+        if scene.env_dist is not None:
+            env_tex, env_slot = lt.env_tex[li], lt.env_slot[li]
+            wn = normalize(wi)
+            u_env, v_env = dir_to_env_uv(wn)
+            sin_t = sqrt0(1.0 - wn.z ** 2)
+            pdf_uv = pdf_env_alias(scene.env_dist, env_slot.clamp_min(0),
+                                   u_env, v_env)
+            pdf_env = torch.where(
+                sin_t > 0.0,
+                pdf_uv / (2.0 * PI * PI * sin_t.clamp_min(1e-9)), 0.0)
+            has_env = (env_tex >= 0) & (env_slot >= 0)
+            pdf_inf = torch.where(has_env, pdf_env, pdf_inf)
+        pdf = _pick(ltype == LIGHT_INFINITE, pdf_inf, pdf)
 
-    if scene.spheres.count > 0:
+    if hit is not None and LIGHT_AREA_TRI in present:
+        dh = ref_p - hit.p
+        same = hit.valid & (hit.light_id == li)
+        cos_l = dot(hit.n, -normalize(wi)).abs()
+        area = lt.area[li].clamp_min(1e-20)
+        pdf_t = torch.where(same & (cos_l > 1e-8),
+                            dot(dh, dh) / (cos_l * area), 0.0)
+        pdf = _pick(ltype == LIGHT_AREA_TRI, pdf_t, pdf)
+
+    if LIGHT_AREA_SPHERE in present and scene.spheres.count > 0:
         sel = ltype == LIGHT_AREA_SPHERE
         sphere_idx = lt.shape_id[li].clamp(
             0, scene.spheres.count - 1).long()
@@ -236,7 +355,9 @@ def light_pdf(scene: Scene, light_idx, ref_p: V3, wi: V3,
         denom = dot(n_w, -_v3(wi_a)).abs() * (4.0 * PI * r * r)
         pdf_area = torch.where(ok & (denom > 0.0),
                                d2 / denom.clamp_min(1e-12), 0.0)
-        pdf = torch.where(sel, pdf_area, pdf)
+        pdf = _pick(sel, pdf_area, pdf)
+    if pdf is None:
+        pdf = torch.zeros(n, dtype=torch.float32, device=dev)
     return pdf
 
 

@@ -1,12 +1,12 @@
 """Host-side scene assembly (SceneBuilder) and the bridge from JAX leaves.
 
-Counterpart of ``fountain_tpu/scene/build.py`` for images, every texture
+Counterpart of ``fountain_tpu/scene/build.py``: images, every texture
 type (constant, uv, image, checker, scale), the five materials, triangle
-meshes (with object-to-world transforms), spheres, infinite lights and
-sphere area lights. ``build()`` compiles the rows into a ``Scene`` of
-tensors on the chosen device, with the world bounds, the mipmapped image
-atlas and the per-light env alias tables. Point, distant and mesh area
-lights are not ported yet.
+meshes (with object-to-world transforms), spheres, and every light type
+(point, distant, infinite, sphere and mesh area lights). ``build()``
+compiles the rows into a ``Scene`` of tensors on the chosen device, with
+the world bounds, the mipmapped image atlas, the per-light env alias
+tables and the mesh lights' per-face alias table ``light_tri``.
 
 ``scene_from_arrays`` turns the leaves of a ``fountain_tpu`` Scene (given
 as numpy arrays under their dotted field paths) into the port's Scene, so
@@ -20,7 +20,9 @@ import torch
 
 from fountain_tpu_torch.device import resolve_device
 from fountain_tpu_torch.scene.types import (LIGHT_AREA_SPHERE,
-                                            LIGHT_INFINITE, MAT_GLASS,
+                                            LIGHT_AREA_TRI, LIGHT_DISTANT,
+                                            LIGHT_INFINITE, LIGHT_POINT,
+                                            MAT_GLASS,
                                             MAT_MATTE, MAT_METAL, MAT_MIRROR,
                                             MAT_PLASTIC, TEX_CHECKER,
                                             TEX_CONSTANT, TEX_IMAGE,
@@ -34,17 +36,6 @@ _MAT_ROW = dict(mtype=MAT_MATTE, kd_tex=0, ks_tex=0, kr_tex=0, kt_tex=0,
                 sigma_tex=0, rough_u_tex=0, rough_v_tex=0, eta=1.5,
                 eta3=[1.0, 1.0, 1.0], k3=[1.0, 1.0, 1.0],
                 remap_roughness=True)
-
-
-def check_supported(scene: Scene) -> None:
-    """Raise on scene content the port does not compute yet."""
-    lt = scene.lights.ltype
-    if bool(((lt != LIGHT_INFINITE) & (lt != LIGHT_AREA_SPHERE)).any()):
-        raise NotImplementedError(
-            "only infinite (uniform or env-mapped) and sphere area lights "
-            "are ported yet")
-    if scene.light_tri is not None:
-        raise NotImplementedError("mesh area lights are not ported yet")
 
 
 def _empty_spheres(device) -> Spheres:
@@ -203,16 +194,28 @@ class SceneBuilder:
             normals = normals / np.maximum(ln, 1e-20)
         self._tri_meshes.append(dict(
             positions=positions, indices=np.asarray(indices, np.int32),
-            normals=normals, uv=uv, mat_id=int(mat_id),
+            normals=normals, uv=uv, mat_id=int(mat_id), light_id=-1,
             flip_normal=bool(reverse_orientation) ^ swaps))
         return len(self._tri_meshes) - 1
 
     def _add_light(self, **kw) -> int:
-        row = dict(ltype=LIGHT_INFINITE, emit=[1.0, 1.0, 1.0], shape_id=-1,
-                   env_tex=-1, area=0.0)
+        row = dict(ltype=LIGHT_INFINITE, emit=[1.0, 1.0, 1.0],
+                   pos=[0.0, 0.0, 0.0], dir=[0.0, 0.0, 1.0], shape_id=-1,
+                   tri_start=0, tri_count=0, env_tex=-1, area=0.0)
         row.update(kw)
         self._lights.append(row)
         return len(self._lights) - 1
+
+    def add_point_light(self, pos, intensity) -> int:
+        """Isotropic point light of ``intensity`` at ``pos``."""
+        return self._add_light(ltype=LIGHT_POINT, pos=list(map(float, pos)),
+                               emit=list(map(float, intensity)))
+
+    def add_distant_light(self, direction, radiance) -> int:
+        """Directional light; ``direction`` points FROM the light."""
+        return self._add_light(ltype=LIGHT_DISTANT,
+                               dir=list(map(float, direction)),
+                               emit=list(map(float, radiance)))
 
     def add_infinite_light(self, radiance=(1.0, 1.0, 1.0),
                            env_tex: int = -1) -> int:
@@ -229,6 +232,16 @@ class SceneBuilder:
                               shape_id=int(sphere_idx),
                               area=4.0 * np.pi * sph["radius"] ** 2)
         sph["light_id"] = lid
+        return lid
+
+    def add_area_light_mesh(self, mesh_idx: int, radiance) -> int:
+        """Diffuse emission from every face of mesh ``mesh_idx`` (one-sided,
+        along the faces' geometric normals); faces are sampled in
+        proportion to their area."""
+        lid = self._add_light(ltype=LIGHT_AREA_TRI,
+                              emit=list(map(float, radiance)),
+                              shape_id=int(mesh_idx))
+        self._tri_meshes[mesh_idx]["light_id"] = lid
         return lid
 
     def build(self, device=None) -> Scene:
@@ -265,7 +278,7 @@ class SceneBuilder:
                  else np.zeros((len(m["positions"]), 2), np.float32)
                  for m in meshes]) if meshes else np.zeros((0, 2))),
             mat_id=i32(per_face("mat_id")),
-            light_id=i32(np.full(len(per_face("mat_id")), -1)),
+            light_id=i32(per_face("light_id")),
             flip_normal=b8(per_face("flip_normal")),
             mesh_id=i32(np.concatenate(
                 [np.full(len(m["indices"]), k) for k, m in enumerate(meshes)])
@@ -349,19 +362,17 @@ class SceneBuilder:
                     env_slots[lid] = slot
                 env_dist = make_env_alias_stack(funcs, dev)
 
-        lt = self._lights
+        lt = [dict(r) for r in self._lights]
+        light_tri = self._light_tri(meshes, lt)
         n_l = len(lt)
+        col = lambda k, *shape: np.asarray(                   # noqa: E731
+            [r[k] for r in lt]).reshape(n_l, *shape)
         lights = Lights(
-            ltype=i32(np.asarray([r["ltype"] for r in lt]).reshape(n_l)),
-            emit=f32(np.asarray([r["emit"] for r in lt]).reshape(n_l, 3)),
-            pos=f32(np.zeros((n_l, 3))),
-            dir=f32(np.tile([0.0, 0.0, 1.0], (n_l, 1))),
-            shape_id=i32(np.asarray([r["shape_id"] for r in lt])
-                         .reshape(n_l)),
-            tri_start=i32(np.zeros(n_l)), tri_count=i32(np.zeros(n_l)),
-            env_tex=i32(np.asarray([r["env_tex"] for r in lt])
-                        .reshape(n_l)),
-            area=f32(np.asarray([r["area"] for r in lt]).reshape(n_l)),
+            ltype=i32(col("ltype")), emit=f32(col("emit", 3)),
+            pos=f32(col("pos", 3)), dir=f32(col("dir", 3)),
+            shape_id=i32(col("shape_id")), tri_start=i32(col("tri_start")),
+            tri_count=i32(col("tri_count")), env_tex=i32(col("env_tex")),
+            area=f32(col("area")),
             env_slot=i32([env_slots.get(i, -1) for i in range(n_l)]))
 
         return Scene(
@@ -369,7 +380,44 @@ class SceneBuilder:
             materials=materials, textures=textures, lights=lights,
             world_center=f32(center),
             world_radius=f32(max(radius, 1e-3)),
+            light_tri=None if light_tri is None else f32(light_tri),
             env_images=atlas, env_dist=env_dist)
+
+    @staticmethod
+    def _light_tri(meshes, lt):
+        """The mesh lights' [F, 16] face table in the original face order
+        (``Scene.light_tri``), or None without a mesh light; fills each
+        mesh light's row of ``lt`` with its face range and total area.
+        Faces are chosen in proportion to their world-space area by a
+        Vose alias table over the light's own range."""
+        from fountain_tpu_torch.core.sampling import vose_alias
+        ranges, f_off = {}, 0
+        for m in meshes:
+            if m["light_id"] >= 0:
+                ranges[m["light_id"]] = (f_off, len(m["indices"]))
+            f_off += len(m["indices"])
+        if not ranges:
+            return None
+        v_off = np.cumsum([0] + [len(m["positions"]) for m in meshes])[:-1]
+        pos_all = np.concatenate([m["positions"] for m in meshes])
+        fverts = pos_all[np.concatenate(
+            [m["indices"] + o for m, o in zip(meshes, v_off)])]
+        face_area = 0.5 * np.linalg.norm(
+            np.cross(fverts[:, 1] - fverts[:, 0], fverts[:, 2] - fverts[:, 0]),
+            axis=-1)
+        table = np.zeros((len(face_area), 16), np.float32)
+        table[:, 2:11] = fverts.reshape(-1, 9)
+        table[:, 11] = np.concatenate(
+            [np.full(len(m["indices"]), float(m["flip_normal"]), np.float32)
+             for m in meshes])
+        for lid, (start, cnt) in ranges.items():
+            seg = face_area[start:start + cnt]
+            total = max(float(seg.sum()), 1e-20)
+            prob, alias = vose_alias(seg / total)
+            table[start:start + cnt, 0] = prob
+            table[start:start + cnt, 1] = (alias + start).astype(np.float32)
+            lt[lid].update(tri_start=start, tri_count=cnt, area=total)
+        return table
 
     def _env_light_images(self):
         """[(light_idx, image_id)] for every env-mapped infinite light,
@@ -399,7 +447,6 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
     coefficients (``"tri_features.packed"``) as they are, with block
     bounds from the leaf-ordered vertices (``"bvh_tri_verts"``). Leaves of
     the TPU-only tables (``tri_qfeat``, the BVH walk) are ignored.
-    Raises on content the port does not compute yet.
     """
     from fountain_tpu_torch.core.sampling import EnvAlias
     from fountain_tpu_torch.geometry.tensor_tri import TriFeatures
@@ -433,5 +480,4 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
             if "tri_features.packed" in arrays else None
         scene.tri_sweep = pack_sweep_table(arrays["bvh_tri_verts"], dev,
                                            feat=feat)
-    check_supported(scene)
     return scene

@@ -121,6 +121,12 @@ class Lights:
     area: torch.Tensor         # [L]
     env_slot: torch.Tensor     # [L] int32 (-1 = uniform-sphere sampling)
 
+    def __post_init__(self):
+        # each light's type, read once to the host: sampling and pdf
+        # queries build the branches of the present types only
+        self.types = tuple(self.ltype.tolist())
+        self.present = frozenset(self.types)
+
     @property
     def count(self) -> int:
         return self.ltype.shape[0]
@@ -130,7 +136,13 @@ class Lights:
 class Scene:
     """The full flat scene. ``tri_sweep`` (geometry.tri_sweep.SweepTable)
     carries the triangle sweeps' face table in leaf order; ``tri_attr``
-    the packed per-face hit attributes (geometry.triangle)."""
+    the packed per-face hit attributes (geometry.triangle). ``light_tri``
+    [F, 16] is the mesh area lights' face table in SceneBuilder's ORIGINAL
+    face order (a light addresses its faces as the range [tri_start,
+    tri_start + tri_count), whatever the leaf order): 0 alias
+    probability | 1 alias face (as a float) | 2:11 the face's vertices p0,
+    p1, p2 | 11 flip | 12:16 zero; None when no light samples mesh
+    faces."""
     spheres: Spheres
     triangles: Triangles
     materials: Materials

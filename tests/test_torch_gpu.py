@@ -341,3 +341,99 @@ def test_cli_flagship_launches_sweeps_on_card(regen, tmp_path):
     img = read_exr(out)
     assert img.shape == (256, 256, 3) and np.isfinite(img).all()
     assert img.mean() > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["path", "direct", "whitted", "bsdf_only"])
+def test_mis_box_modes_on_card_match_cpu(mode):
+    """The mis_box (a mesh area light) at 16x16, 2 spp in each integrator
+    mode: the card's image equals the CPU's (rtol 1e-3 on every pixel,
+    mean rel 1e-4), and a bounce launches the sweeps the mode needs."""
+    _card()
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    kw = {"path": {}, "direct": dict(mode="direct"),
+          "whitted": dict(mode="whitted"),
+          "bsdf_only": dict(nee=False, emit_all_bounces=True)}[mode]
+    cfg = PathConfig(max_depth=5, rr_threshold=1.0, **kw)
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        scene, cam = bench.build_mis_box(dev, 16)
+        ts.reset_launch_counts()
+        imgs[dev] = render(scene, cam, 16, 16, 2, cfg).cpu()
+        if dev == "cuda":
+            closest = {"direct": 2}.get(mode, 1) * 6 * 2
+            anyhit = {"bsdf_only": 0}.get(mode, 1) * 6 * 2
+            assert ts.launch_counts == {"tri_sweep_closest": closest,
+                                        "tri_sweep_any": anyhit}
+    g, c = imgs["cuda"], imgs["cpu"]
+    torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-8)
+    assert abs(float(g.mean() - c.mean())) <= 1e-4 * abs(float(c.mean())) \
+        or float(c.mean()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ftype", [1, 2])
+def test_filters_and_partial_waves_on_card_match_cpu(ftype):
+    """The triangle and Gaussian filters (radius 2) through the aligned
+    splat and the scatter splat of two partial waves: card = CPU within
+    rtol 1e-5 (the scatter's index_add order differs on the card)."""
+    _card()
+    from fountain_tpu_torch.scene import film as fm
+    rng = np.random.default_rng(ftype)
+    w, h = 24, 17
+    frac = rng.random((w * h, 2), np.float32)
+    rad = rng.random((w * h, 3), np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        v = lambda a: V3(t(a[:, 0]), t(a[:, 1]), t(a[:, 2]))
+        full = fm.add_samples_aligned(fm.make_film(w, h, dev), t(frac[:, 0]),
+                                      t(frac[:, 1]), v(rad), ftype, 2.0)
+        part = fm.make_film(w, h, dev)
+        for lo, hi in ((0, 200), (200, w * h)):
+            part = fm.add_samples_aligned(
+                part, t(frac[lo:hi, 0]), t(frac[lo:hi, 1]), v(rad[lo:hi]),
+                ftype, 2.0, lane_offset=lo)
+        out[dev] = [fm.finalize(f).cpu() for f in (full, part)]
+    for g, c in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_large_mesh_277k_matches_plain_on_card():
+    """The 277,248-face mesh of bench.build_large_scene: both kernels
+    equal their plain versions on 2,048 random rays, and 10,000 rays from
+    the mesh's inside all hit."""
+    _card()
+    from fountain_tpu_torch import bench
+    scene, _, _ = bench.build_large_scene("cuda", 16)
+    table = scene.tri_sweep
+    assert scene.triangles.count == 277_248 and table.n_blocks == 2166
+    rng = np.random.default_rng(5)
+    o = torch.as_tensor(rng.uniform(-25, 25, (2048, 3)), dtype=torch.float32,
+                        device="cuda")
+    d = rng.normal(size=(2048, 3))
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=-1, keepdims=True),
+                        dtype=torch.float32, device="cuda")
+    ov, dv = V3(*o.unbind(-1)), V3(*d.unbind(-1))
+    cap = torch.full((2048,), 3e38, device="cuda")
+    t_k, i_k = ts.closest_hit_kernel(table, ov, dv, cap)
+    t_p, i_p = ts.closest_hit_plain(table, ov, dv, cap)
+    assert torch.equal(i_k >= 0, i_p >= 0) and bool((i_k >= 0).any())
+    m = i_k >= 0
+    assert torch.equal(i_k[m], i_p[m])
+    torch.testing.assert_close(t_k[m], t_p[m], rtol=T_RTOL, atol=0)
+    assert torch.equal(ts.any_hit_kernel(table, ov, dv, cap),
+                       ts.any_hit_plain(table, ov, dv, cap))
+    n = 10_000
+    dirs = rng.normal(size=(n, 3))
+    dirs = torch.as_tensor(dirs / np.linalg.norm(dirs, axis=-1,
+                                                 keepdims=True),
+                           dtype=torch.float32, device="cuda")
+    zero = torch.zeros(n, device="cuda")
+    _, idx = ts.closest_hit_kernel(table, V3(zero, zero, zero),
+                                   V3(*dirs.unbind(-1)),
+                                   torch.full((n,), 3e38, device="cuda"))
+    assert int((idx < 0).sum()) == 0

@@ -226,12 +226,19 @@ def test_cli_refusals(tmp_path):
                                    'Shape "trianglemesh" "integer indices"'
                                    ' [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]'),
     }
+    # content that raised before its port now renders
     for name, body in cases.items():
         path = tmp_path / f"{name.replace(' ', '_')}.pbrt"
         path.write_text(body)
-        with pytest.raises(NotImplementedError):
-            main([str(path), "--cpu", "--samples", "1", "-o",
-                  str(tmp_path / "x.exr")])
+        assert main([str(path), "--cpu", "--samples", "1", "-o",
+                     str(tmp_path / "x.exr")]) == 0
+    # what the JAX package refuses too
+    path = tmp_path / "instance.pbrt"
+    path.write_text(text.replace("WorldBegin",
+                                 'WorldBegin\nObjectBegin "a"'))
+    with pytest.raises(NotImplementedError):
+        main([str(path), "--cpu", "--samples", "1", "-o",
+              str(tmp_path / "x.exr")])
     if not torch.cuda.is_available():     # the default device is cuda
         with pytest.raises(RuntimeError):
             load_pbrt(SCENES[1])

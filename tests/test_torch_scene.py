@@ -207,16 +207,23 @@ def test_sample_light_light_pdf_and_env_radiance():
     _close(jl.emitted_radiance(jscene, jh), tl.emitted_radiance(tscene, th))
 
 
-def test_unsupported_content_raises():
-    """The port refuses what it does not compute yet, instead of
-    computing something else."""
+def test_unsupported_content_raises(tmp_path):
+    """The port refuses what the JAX package refuses (object instancing),
+    instead of computing something else; a point light, refused before
+    its port, now bridges with its light row."""
     from fountain_tpu.scene.build import SceneBuilder as JB
     from fountain_tpu.geometry.bvh import attach_bvh as jattach
+    from fountain_tpu_torch.io.pbrt import load_pbrt
     from fountain_tpu_torch.scene.build import scene_from_arrays
     b = JB()
     m = b.add_mirror()
     b.add_triangle_mesh(np.eye(3, dtype=np.float32),
                         np.array([[0, 1, 2]]), mat_id=m)
     b.add_point_light([0.0, 0.0, 5.0], [1.0, 1.0, 1.0])
+    scene = scene_from_arrays(jax_arrays(jattach(b.build())), device="cpu")
+    assert scene.lights.types == (0,)
+    np.testing.assert_array_equal(scene.lights.pos.numpy(), [[0, 0, 5]])
+    path = tmp_path / "instance.pbrt"
+    path.write_text('WorldBegin\nObjectBegin "a"\nWorldEnd\n')
     with pytest.raises(NotImplementedError):
-        scene_from_arrays(jax_arrays(jattach(b.build())), device="cpu")
+        load_pbrt(str(path), device="cpu")
