@@ -96,7 +96,24 @@ Phases (any failure exits non-zero; no phase is skipped):
      both closest-hit launches of each, the second one the BSDF-sampled
      ray; the path mode's wave is phase 11's config 2); logo_cube with
      the Gaussian and triangle filters (radius 2) on the card against the
-     CPU at 32x32, 4 spp.
+     CPU at 32x32, 4 spp;
+ 14. the sharded render, checkpoints and image codecs: config 3's
+     fixed wave (512x512 lanes, depth 5, NEE, box filter, 4 spp, seed 0)
+     through ``render_sharded`` over two gloo ranks on one card, started
+     with ``parallel.shard.run_ranks`` (torch.multiprocessing): each
+     rank's image equal to the one-process ``render`` (rtol 1e-6, atol
+     1e-6) and the gradient of its mean with respect to the texture
+     values, summed with ``all_reduce_grads``, equal to the one-process
+     gradient (rtol GRAD_RTOL: float32 sums in another order; one
+     process's second step against its first printed beside it), each
+     rank's sweep launches and wall times beside one process's; NCCL at world size 1 (``init_distributed``,
+     ``barrier_sync``, a render bit-equal to ``render``); both kernels
+     held to their plain versions and timed at rank 1's bounce-0 inputs;
+     the CLI's ``--devices 2`` raising on a one-card machine and
+     ``--devices 1`` rendering logo_cube; samples [0, 2) + a checkpoint
+     + [2, 4) bit-equal to [0, 4) on the card; ``mipmap_debug`` on
+     data/logo.png and a JPEG written and read back by the port's codecs
+     (no Pillow needed).
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1573,6 +1590,273 @@ def phase_modes():
 
 
 
+SHARD_SPP = 4          # samples of phase 14's fixed wave
+SHARD_RANKS = 2        # gloo ranks on one card in phase 14
+# Phase 14's gradient gate. Each rank sums its half of the lanes'
+# float32 contributions to the texture values (index_add_ atomics) and
+# the halves are then added; one process sums all 4 x 512^2 lanes in
+# another order. Float32 sums of ~1e6 terms in another order differ by
+# ~eps * sqrt(n) ~ 6e-5 relative; the phase prints both spreads (on an
+# H100: one process against its own second step ~1e-6, two ranks
+# against one process ~1.3e-5). A world-size-scaled backward is off by
+# 100%.
+GRAD_RTOL = 1e-4
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_runs(scene, cam, sharded, res):
+    """Config 3's fixed wave as phase 14 runs it (res x res lanes, depth
+    MAX_DEPTH, NEE, box filter, SHARD_SPP samples, seed 0), through
+    ``render_sharded`` over the process group or ``render`` here: the
+    image under no_grad, then the step (the backward of the image mean to
+    the texture values, summed over the ranks when sharded). Returns
+    (image, the step's image, gradient, record of each run's wall time and
+    sweep launches, counts set to 0 just before each run)."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    from fountain_tpu_torch.parallel import shard
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    fn = shard.render_sharded if sharded else render
+
+    def run(step):
+        tv = scene.textures.value.detach().clone().requires_grad_(step)
+        s = _with_textures(scene, tv)
+        _sync(scene.device)
+        ts.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(step):
+            img = fn(s, cam, res, res, SHARD_SPP, cfg, seed=0)
+            if step:
+                img.mean().backward()
+                if sharded:
+                    shard.all_reduce_grads([tv])
+        _sync(scene.device)
+        return (img.detach().cpu(), tv.grad,
+                time.perf_counter() - t0, dict(ts.launch_counts))
+    img, _, fwd_s, fwd_l = run(False)
+    img_step, grad, step_s, step_l = run(True)
+    return img, img_step, grad.cpu(), dict(
+        fwd_s=fwd_s, step_s=step_s, launches_fwd=fwd_l, launches_step=step_l)
+
+
+def _gloo_rank(rank, device, out_dir, res):
+    """One of phase 14's gloo ranks (``shard.run_ranks``): config 3 built
+    on its device, then ``sharded_runs``; results to ``out_dir``."""
+    scene, cam = build_scene(res, device)
+    img, img_step, grad, rec = sharded_runs(scene, cam, True, res)
+    rec.update(rank=rank, device=str(device),
+               backend=torch.distributed.get_backend(),
+               world=torch.distributed.get_world_size())
+    torch.save(dict(img=img, img_step=img_step, grad=grad),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def _nccl_rank(rank, device, out_dir, res):
+    """Phase 14's NCCL process at world size 1: the barrier, then
+    ``render_sharded`` (its film through NCCL's all_reduce) against
+    ``render`` on the same scene."""
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    from fountain_tpu_torch.parallel import shard
+    shard.barrier_sync()
+    scene, cam = build_scene(res, device)
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    with torch.no_grad():
+        _sync(device)
+        ts.reset_launch_counts()
+        img = shard.render_sharded(scene, cam, res, res, SHARD_SPP, cfg,
+                                   n_devices=1, seed=0)
+        _sync(device)
+        launches = dict(ts.launch_counts)
+        ref = render(scene, cam, res, res, SHARD_SPP, cfg, seed=0)
+    rec = dict(backend=torch.distributed.get_backend(),
+               world=torch.distributed.get_world_size(),
+               bit_equal=bool(torch.equal(img, ref)),
+               max_abs=float((img - ref).abs().max()), launches=launches)
+    with open(os.path.join(out_dir, "nccl.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def phase_sharded(scene, cam):
+    """Phase 14: the sharded render, the CLI's --devices, checkpoint /
+    resume and the image codecs on the card. Fails on any gate."""
+    import importlib.util
+    import tempfile
+
+    from fountain_tpu_torch.cli import mipmap_debug
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render_samples
+    from fountain_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    from fountain_tpu_torch.io.image import decode_png, load_image, save_image
+    from fountain_tpu_torch.parallel import shard
+    from fountain_tpu_torch.scene.film import FILTER_BOX, make_film
+    from fountain_tpu_torch.shading.mipmap import build_pyramid
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
+    log(f"phase 14: config 3's fixed wave ({RES}x{RES} lanes, depth "
+        f"{MAX_DEPTH}, NEE, box filter, {SHARD_SPP} spp, seed 0) sharded "
+        f"over {SHARD_RANKS} gloo ranks on one card (gates: image rtol 1e-6 "
+        f"atol 1e-6, gradient rtol {GRAD_RTOL} against one process)")
+    torch.cuda.empty_cache()
+    img1, img1_step, grad1, single = sharded_runs(scene, cam, False, RES)
+    again = sharded_runs(scene, cam, False, RES)
+    single["grad_self_max_rel"] = float(
+        ((again[2] - grad1).abs() / grad1.abs().clamp_min(1e-12)).max())
+    single["grad"] = grad1.reshape(-1).tolist()
+    log("  one process (render; grad_self_max_rel: a second step against "
+        "the first): " + json.dumps(single))
+    rank_dev = "cuda:0" if DEVICE == "cuda" else "cpu"
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        shard.run_ranks(_gloo_rank, [rank_dev] * SHARD_RANKS,
+                        args=(tmp, RES), backend="gloo")
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                rec = json.load(fh)
+            rec.update(torch.load(os.path.join(tmp, f"rank{r}.pt")))
+            ranks.append(rec)
+        t0 = time.perf_counter()
+        shard.run_ranks(_nccl_rank, [rank_dev], args=(tmp, RES),
+                        backend="nccl" if DEVICE == "cuda" else "gloo")
+        nccl_spawn_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "nccl.json")) as fh:
+            nccl = json.load(fh)
+    scale = float(grad1.abs().max())
+    for rec in ranks:
+        img, img_s, grad = rec.pop("img"), rec.pop("img_step"), \
+            rec.pop("grad")
+        rec["img_max_rel"] = float(((img - img1).abs()
+                                    / img1.abs().clamp_min(1e-6)).max())
+        rec["img_close"] = bool(torch.allclose(img, img1, rtol=1e-6,
+                                               atol=1e-6)
+                                and torch.allclose(img_s, img1_step,
+                                                   rtol=1e-6, atol=1e-6))
+        rec["grad_max_rel"] = float(((grad - grad1).abs()
+                                     / grad1.abs().clamp_min(
+                                         1e-6 * scale)).max())
+        rec["grad_close"] = bool(torch.allclose(grad, grad1, rtol=GRAD_RTOL,
+                                                atol=1e-7 * scale))
+        rec["grad"] = grad.reshape(-1).tolist()
+        log(f"  gloo rank {rec['rank']} of {rec['world']} on "
+            f"{rec['device']}: " + json.dumps(rec))
+        if not (rec["img_close"] and rec["grad_close"]):
+            fail(f"phase 14: rank {rec['rank']}'s image or gradient differs "
+                 "from one process's")
+        for run in ("launches_fwd", "launches_step"):
+            if min(rec[run].values()) < 1:
+                fail(f"phase 14: rank {rec['rank']} launched no sweep in "
+                     f"{run}")
+    log(f"  gloo ranks: {spawn_s:.2f} s for the whole spawn (start, init, "
+        f"scene, both runs; one process's runs: {single['fwd_s']:.3f} + "
+        f"{single['step_s']:.3f} s)")
+    nccl["spawn_s"] = nccl_spawn_s
+    log("  NCCL at world size 1 (gate: bit-equal to render): "
+        + json.dumps(nccl))
+    if not nccl["bit_equal"] or min(nccl["launches"].values()) < 1 \
+            or nccl["world"] != 1:
+        fail("phase 14: the NCCL render differs from render")
+    out.update(single=single, ranks=ranks, nccl=nccl)
+
+    log(f"  kernels at rank 1's inputs (lanes {RES * RES // 2}.. of "
+        f"{RES * RES}, launch 0: bounce 0 of sample 0; gates as in phase 2)")
+    with torch.no_grad():
+        captured = capture_sweep_inputs(
+            lambda: shard.render_shard(scene, cam, RES, RES, SHARD_SPP, cfg,
+                                       FILTER_BOX, 0.5, 0, 1, SHARD_RANKS),
+            (0,))
+    out["kernels"] = phase_kernel_times(scene, captured)
+
+    from fountain_tpu_torch.cli import render as cli
+    n_cards = torch.cuda.device_count()
+    try:
+        cli.main([os.path.join(ROOT, FURNACE), "--devices", "2", "-o",
+                  os.path.join(build, "furnace_devices2.exr")])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    log(f"  CLI --devices 2 on {n_cards} card(s): raised {raised!r}")
+    if n_cards < 2 and raised is None:
+        fail("phase 14: --devices 2 did not raise on a one-card machine")
+    res, _ = run_cli([os.path.join(ROOT, FLAGSHIP), "--devices", "1",
+                      "--samples", "2", "-o",
+                      os.path.join(build, "logo_cube_devices1.exr")],
+                     "logo_cube --devices 1")
+    log("  CLI logo_cube --devices 1 --samples 2: " + json.dumps(res))
+    if not (res["finite"] and res["exr_equal"]) \
+            or min(res["launches"].values()) < 1:
+        fail("phase 14: --devices 1 did not render through both kernels")
+    out["cli_devices1"] = res
+
+    with torch.no_grad():
+        run = lambda s0, s1, film: render_samples(  # noqa: E731
+            scene, cam, RES, RES, s0, s1, SHARD_SPP, film, cfg, seed=0)
+        full = run(0, SHARD_SPP, make_film(RES, RES, DEVICE))
+        path = os.path.join(build, "config3.ckpt.npz")
+        save_checkpoint(path, run(0, 2, make_film(RES, RES, DEVICE)), 2,
+                        SHARD_SPP, seed=0, params=scene.textures.value)
+        film, s0, spp, seed, tv = load_checkpoint(
+            path, params_like=scene.textures.value, device=DEVICE)
+        resumed = render_samples(scene, cam, RES, RES, s0, spp, spp, film,
+                                 cfg, seed=seed)
+    keys = ("r_sum", "g_sum", "b_sum", "weight_sum")
+    ckpt = dict(bit_equal=all(torch.equal(getattr(full, k),
+                                          getattr(resumed, k)) for k in keys),
+                params_equal=bool(torch.equal(tv, scene.textures.value)),
+                film_device=str(film.r_sum.device))
+    log(f"  checkpoint on the card: samples [0, 2), save, load, [2, "
+        f"{SHARD_SPP}) against [0, {SHARD_SPP}) (gate: bit-equal): "
+        + json.dumps(ckpt))
+    if not (ckpt["bit_equal"] and ckpt["params_equal"]):
+        fail("phase 14: the resumed render differs")
+    out["checkpoint"] = ckpt
+
+    logo = os.path.join(ROOT, "data", "logo.png")
+    mip_dir = os.path.join(build, "mipmap_debug")
+    if mipmap_debug.main([logo, "-o", mip_dir]) != 0:
+        fail("phase 14: mipmap_debug failed")
+    level = load_image(os.path.join(mip_dir, "logo_L3.png"), gamma=False,
+                       flip_y=False)
+    want = build_pyramid(load_image(logo))[3][::-1]
+    srgb = np.where(want <= 0.0031308, 12.92 * want,
+                    1.055 * np.clip(want, 0, 1) ** (1 / 2.4) - 0.055)
+    jpg = os.path.join(build, "logo.jpg")
+    save_image(jpg, load_image(logo, flip_y=False))
+    with open(logo, "rb") as fh:
+        src = decode_png(fh.read()).astype(np.float64)
+    back = np.asarray(load_image(jpg, gamma=False, flip_y=False)) * 255.0
+    io_rec = dict(pillow_installed=importlib.util.find_spec("PIL")
+                  is not None, levels=len(os.listdir(mip_dir)) - 1,
+                  level3_shape=list(level.shape),
+                  level3_max_err_levels=float(np.abs(level - srgb).max()
+                                              * 255.0),
+                  jpeg_bytes=os.path.getsize(jpg),
+                  jpeg_mean_err_levels=float(np.abs(back - src).mean()))
+    log("  image codecs (gates: the level within one 8-bit level, the JPEG "
+        "within 3 levels on average): " + json.dumps(io_rec))
+    if io_rec["level3_shape"] != [32, 32, 3] \
+            or io_rec["level3_max_err_levels"] > 1.0 + 1e-3 \
+            or io_rec["jpeg_mean_err_levels"] > 3.0:
+        fail("phase 14: the image codecs disagree")
+    out["image_io"] = io_rec
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['phase_s']:.1f} s (cap 120 s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1615,6 +1899,7 @@ def main():
     allc = stamp(phase_all_configs(step, fstep))
     large = stamp(phase_large_scene())
     modes = stamp(phase_modes())
+    sharded = stamp(phase_sharded(scene, cam))
     paths = {"config3_wave": wave["launches"],
              "config3_step": step["launches_per_step"],
              "logo_cube_cli_regen": flag["cli_regen"]["launches"],
@@ -1634,6 +1919,13 @@ def main():
             paths[key] = rec["launches"]
     mis_box = {key[len("mis_box_"):]: rec for key, rec in modes.items()
                if key.startswith("mis_box_")}
+    for run in ("fwd", "step"):
+        paths[f"config3_fixed_{run}"] = sharded["single"][f"launches_{run}"]
+        for rec in sharded["ranks"]:
+            paths[f"config3_sharded_rank{rec['rank']}_{run}"] = \
+                rec[f"launches_{run}"]
+    paths["config3_sharded_nccl_world1"] = sharded["nccl"]["launches"]
+    paths["logo_cube_cli_devices1"] = sharded["cli_devices1"]["launches"]
 
     kernels = []
     for name, replaces in (
@@ -1658,6 +1950,7 @@ def main():
                             *(row["max_abs_err"] for rec in mis_box.values()
                               for (k, _), row in rec["kernels"].items()
                               if k == name),
+                            sharded["kernels"][(name, 0)]["max_abs_err"],
                             0.0 if name == "tri_sweep_any"
                             else max(err_t, large["random_max_abs_err"])),
             ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
@@ -1680,6 +1973,8 @@ def main():
                             for (k_, it), row in rec["kernels"].items()
                             if k_ == name}
                      for mode, rec in mis_box.items()},
+            sharded_rank1={"launch0": {
+                k: sharded["kernels"][(name, 0)][k] for k in ROW_KEYS}},
             launches_per_flagship_step={
                 est: dict(fwd=rec["launches_fwd"][name],
                           bwd=rec["launches_bwd"][name])

@@ -4,16 +4,23 @@ Counterpart of ``fountain_tpu/cli/render.py``, with the same flags and
 stderr lines:
 
     python -m fountain_tpu_torch.cli.render scene.pbrt [-o out.exr]
-        [--samples N] [--max-depth D] [--seed S] [--cpu] [--regen]
-        [--progress] [--profile DIR]
+        [--samples N] [--max-depth D] [--seed S] [--cpu] [--devices N]
+        [--regen] [--progress] [--profile DIR]
 
 It runs on the CUDA card, and raises without one, unless ``--cpu`` asks
 for the plain path on the CPU. Every integrator (path, directlighting,
 whitted, bsdf) and pixel filter (box, triangle, gaussian) of the JAX CLI
 is taken. As there, ``Integrator "bsdf"`` maps to ``nee=False`` with
 ``emit_all_bounces`` left off, so emission counts only on camera and
-specular bounces. ``--devices N > 1`` waits for the ``torch.distributed``
-port and raises.
+specular bounces.
+
+``--devices N > 1`` shards the pixels over N processes
+(``parallel.shard.render_sharded``): one card a rank (``cuda:r``, NCCL),
+or with ``--cpu`` N gloo processes on the CPU. It raises before anything
+starts when fewer than N cards exist. Rank 0 prints the stderr lines and
+writes the image; a rank that fails makes the command fail. As in the JAX
+CLI, ``--regen`` ignores ``--devices`` (one device), and ``--progress``
+with ``--devices > 1`` renders sharded without progress.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the render across N devices (not ported)")
+                    help="shard the render across N devices (processes: "
+                         "one card each, or N CPU processes with --cpu)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler Chrome trace of the "
                          "render to DIR/trace.json")
@@ -52,26 +60,47 @@ def main(argv=None) -> int:
                          "start their pixel's next sample; spp becomes a "
                          "per-pixel average")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 needs the torch.distributed port, which is not "
-            "done yet")
 
-    import numpy as np
+    if args.regen:
+        if args.devices > 1 or args.progress:
+            print("warning: --regen ignores --devices/--progress",
+                  file=sys.stderr)
+    elif args.devices > 1:
+        if args.progress:
+            print("warning: --progress is not supported with --devices > 1; "
+                  "rendering sharded without progress", file=sys.stderr)
+        from fountain_tpu_torch.parallel.shard import (render_devices,
+                                                       run_ranks)
+        devices = (["cpu"] * args.devices if args.cpu
+                   else render_devices(args.devices))
+        run_ranks(_render, devices, args=(args,))
+        return 0
 
     from fountain_tpu_torch.device import resolve_device
+    return _render(0, resolve_device("cpu" if args.cpu else None), args)
+
+
+def _render(rank: int, device, args) -> int:
+    """Load, render and (rank 0) write the image on ``device``; the
+    sharded render when ``args.devices > 1`` and not ``--regen`` (then
+    one rank of ``parallel.shard.run_ranks``)."""
+    import numpy as np
+
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.io.image import save_image
     from fountain_tpu_torch.io.pbrt import load_pbrt
     from fountain_tpu_torch.scene.film import (FILTER_BOX, FILTER_GAUSSIAN,
                                                FILTER_TRIANGLE, finalize)
 
-    device = resolve_device("cpu" if args.cpu else None)
+    def say(*a, **k):
+        if rank == 0:
+            print(*a, file=sys.stderr, **k)
+
     t0 = time.time()
     scene, camera, st = load_pbrt(args.scene, device=device)
-    print(f"scene loaded in {time.time() - t0:.2f}s: "
-          f"{scene.spheres.count} spheres, {scene.triangles.count} tris, "
-          f"{scene.lights.count} lights", file=sys.stderr)
+    say(f"scene loaded in {time.time() - t0:.2f}s: "
+        f"{scene.spheres.count} spheres, {scene.triangles.count} tris, "
+        f"{scene.lights.count} lights")
 
     spp = args.samples or st.spp
     max_depth = args.max_depth or st.max_depth
@@ -83,11 +112,8 @@ def main(argv=None) -> int:
              "gaussian": FILTER_GAUSSIAN}.get(st.filter_name, FILTER_BOX)
 
     if args.regen:
-        if args.progress:
-            print("warning: --regen ignores --devices/--progress",
-                  file=sys.stderr)
         if ftype != FILTER_BOX:
-            print("warning: --regen uses the box filter", file=sys.stderr)
+            say("warning: --regen uses the box filter")
         from fountain_tpu_torch.integrator.render import render_regen
 
         def img_fn():
@@ -110,6 +136,12 @@ def main(argv=None) -> int:
                 done_spp += todo
                 wave += 1
             return finalize(film)
+    elif args.devices > 1:
+        from fountain_tpu_torch.parallel.shard import render_sharded
+        img_fn = lambda: render_sharded(  # noqa: E731
+            scene, camera, st.xres, st.yres, spp, cfg,
+            n_devices=args.devices, ftype=ftype, fradius=st.filter_radius,
+            seed=args.seed)
     elif args.progress:
         from fountain_tpu_torch.integrator.render import render_samples
         from fountain_tpu_torch.scene.film import make_film
@@ -152,24 +184,25 @@ def main(argv=None) -> int:
         with profile(activities=acts) as prof:
             img = img_fn()
             _sync(device)
-        os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"profile trace written to {trace}", file=sys.stderr)
+        if rank == 0:   # every rank renders under the profiler alike
+            os.makedirs(args.profile, exist_ok=True)
+            trace = os.path.join(args.profile, "trace.json")
+            prof.export_chrome_trace(trace)
+            say(f"profile trace written to {trace}")
     else:
         img = img_fn()
         _sync(device)
-    img = img.cpu().numpy().astype(np.float32)
+    img = img.detach().cpu().numpy().astype(np.float32)
     dt = time.time() - t0
     n_paths = st.xres * st.yres * spp
-    print(f"Completed rendering in {dt:.2f} s "
-          f"({n_paths / dt:.3g} paths/s incl. compile)", file=sys.stderr)
+    say(f"Completed rendering in {dt:.2f} s "
+        f"({n_paths / dt:.3g} paths/s incl. compile)")
 
-    out = args.output or st.output
-    save_image(out, img)
-    print(f"wrote {out}", file=sys.stderr)
+    if rank == 0:
+        out = args.output or st.output
+        save_image(out, img)
+        say(f"wrote {out}")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

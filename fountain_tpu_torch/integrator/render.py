@@ -1,7 +1,8 @@
 """Render driver: camera -> wavefront trace -> film (PyTorch).
 
 Counterpart of ``fountain_tpu/integrator/render.py``: ``render_wave``
-traces one sample per pixel (the fixed wave), ``render_samples``
+traces one sample per pixel (the fixed wave, or a slice of its lanes),
+``render_samples``
 accumulates a range of samples into a film (a Python loop over samples),
 ``render`` is the whole image, and ``render_regen`` is one
 path-regeneration wave. Every random number depends only on (pixel lane,
@@ -11,6 +12,8 @@ samples [0, 4) then [4, 8) equals [0, 8) in one call. Each of them takes
 estimator of ``trace_paths``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -27,13 +30,19 @@ from fountain_tpu_torch.scene.types import Scene
 
 def render_wave(scene: Scene, camera: PerspectiveCamera, xres: int,
                 yres: int, sample_idx: int, cfg: PathConfig, seed=0,
+                lane_offset: int = 0, n_lanes: Optional[int] = None,
                 detach_sampling: bool = True, diff_scale: float = 1.0):
     """Trace one sample-per-pixel wave; returns (frac_x, frac_y, L): the
-    in-pixel jitter [N] in [0, 1)^2 and the radiance V3 of [N], lane i
-    being pixel i in row-major order. ``diff_scale`` scales the
-    texture-filter ray-cone spread."""
-    n_lanes = xres * yres
-    lane = torch.arange(n_lanes, dtype=torch.int32, device=scene.device)
+    in-pixel jitter [N] in [0, 1)^2 and the radiance V3 of [N].
+
+    Lanes cover pixels [lane_offset, lane_offset + n_lanes) in row-major
+    order (all pixels by default): the slicing hook of the sharded
+    render. The random numbers key off the global lane, so a slice's
+    radiance equals the same lanes of the whole wave. ``diff_scale``
+    scales the texture-filter ray-cone spread."""
+    n_lanes = xres * yres if n_lanes is None else n_lanes
+    lane = lane_offset + torch.arange(n_lanes, dtype=torch.int32,
+                                      device=scene.device)
     px = (lane % xres).to(torch.float32)
     py = torch.div(lane, xres, rounding_mode="floor").to(torch.float32)
     u = rng.uniform4(lane, sample_idx, DIM_CAMERA, seed)

@@ -437,3 +437,77 @@ def test_large_mesh_277k_matches_plain_on_card():
                                    V3(*dirs.unbind(-1)),
                                    torch.full((n,), 3e38, device="cuda"))
     assert int((idx < 0).sum()) == 0
+
+
+# The sharded render over two ranks of ``shard.run_ranks``, started in a
+# child Python (whose spawned ranks import this JAX-free module):
+# tests/test_torch_shard.py runs it on the CPU, the test below on the card.
+SHARD_CFG = dict(max_depth=3, rr_threshold=0.0, nee=True)
+
+
+def furnace_image_and_grad(device, res, spp, sharded):
+    """(image, d mean(image) / d textures.value) of the furnace (config 1,
+    bench's camera) at res x res, spp samples; sharded over the ranks of
+    the process group (the gradient summed with ``all_reduce_grads``) or
+    ``render`` in this process."""
+    import dataclasses
+
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.integrator.path import PathConfig
+    from fountain_tpu_torch.integrator.render import render
+    from fountain_tpu_torch.parallel import shard
+    scene, cam = bench.build_furnace(device, res)
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    scene = dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, value=tv))
+    fn = shard.render_sharded if sharded else render
+    img = fn(scene, cam, res, res, spp, PathConfig(**SHARD_CFG))
+    img.mean().backward()
+    if sharded:
+        shard.all_reduce_grads([tv])
+    return img.detach().cpu(), tv.grad.cpu()
+
+
+def furnace_rank(rank, device, res, spp, out):
+    """One rank: saves its image and summed gradient to ``out.<rank>``."""
+    torch.set_num_threads(1)
+    img, grad = furnace_image_and_grad(device, res, spp, sharded=True)
+    torch.save({"img": img, "grad": grad}, f"{out}.{rank}")
+
+
+def run_furnace_ranks(devices, res, spp, tmp_path, backend=None):
+    """``furnace_rank`` on one rank per entry of ``devices``, in a child
+    Python (temporary files, the rendezvous store among them, under
+    ``tmp_path``); returns each rank's {"img", "grad"}."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "rank")
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "from test_torch_gpu import furnace_rank; "
+            "from fountain_tpu_torch.parallel.shard import run_ranks; "
+            f"run_ranks(furnace_rank, {list(devices)!r}, "
+            f"args=({res}, {spp}, sys.argv[1]), backend={backend!r})")
+    env = dict(os.environ, OMP_NUM_THREADS="1", TMPDIR=str(tmp_path),
+               PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", code, out], cwd=repo,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    return [torch.load(f"{out}.{r}") for r in range(len(devices))]
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_render(tmp_path):
+    """Two gloo ranks on cuda:0 render the 64 x 64 furnace (16 spp): each
+    rank's image equals the one-process render on the card (rtol 1e-6),
+    and the summed gradient of its mean the one-process gradient (rtol
+    1e-5)."""
+    _card()
+    ranks = run_furnace_ranks(["cuda:0", "cuda:0"], 64, 16, tmp_path,
+                              backend="gloo")
+    img, grad = furnace_image_and_grad("cuda", 64, 16, sharded=False)
+    for got in ranks:
+        torch.testing.assert_close(got["img"], img, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got["grad"], grad, rtol=1e-5, atol=1e-7)

@@ -3,8 +3,8 @@
 Checked twice: a grep of every import statement in fountain_tpu_torch/ and
 chip_smoke.py, and an import of every module of the package in a fresh
 interpreter whose sys.modules must then hold no ``jax``, no
-``fountain_tpu`` and no ``PIL`` (the card's machine has no Pillow: the
-port decodes and encodes PNG itself).
+``fountain_tpu`` and no ``PIL`` (the port decodes and encodes its PNG
+and JPEG images itself, so it needs no Pillow where it runs).
 """
 import pathlib
 import re

@@ -161,7 +161,7 @@ def test_png_decoder_equals_jax_load_image(mode, tmp_path):
     for f in range(5):                       # each filter type alone
         np.testing.assert_array_equal(decode_png(_png(px, [f])), px)
     np.testing.assert_array_equal(decode_png(_png(px, [0, 1, 2, 3, 4])), px)
-    with pytest.raises(ValueError):          # 16-bit
+    with pytest.raises(ValueError):   # a 16-bit header over 8-bit data
         decode_png(_png(px, [0]).replace(
             struct.pack(">IIBB", 23, 19, 8, {1: 0, 3: 2, 4: 6}[c]),
             struct.pack(">IIBB", 23, 19, 16, {1: 0, 3: 2, 4: 6}[c])))
@@ -210,11 +210,18 @@ def test_cli_profile_writes_a_trace(tmp_path, capsys):
     assert out.exists() and "profile trace written" in capsys.readouterr().err
 
 
-def test_cli_refusals(tmp_path):
+def test_cli_refusals(tmp_path, monkeypatch):
+    import torch
+
     from fountain_tpu_torch.cli.render import main
     from fountain_tpu_torch.io.pbrt import load_pbrt
-    with pytest.raises(NotImplementedError):
-        main([SCENES[1], "--cpu", "--devices", "2"])
+    # --devices N wants N cards, and a one-card machine refuses 2 before
+    # anything starts (--cpu --devices 2 renders: test_torch_shard.py)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 CUDA devices asked for"):
+        main([SCENES[1], "--devices", "2"])
+    monkeypatch.undo()
     text = pathlib.Path(SCENES[1]).read_text()
     cases = {
         "whitted": text.replace('Integrator "path"', 'Integrator "whitted"'),
