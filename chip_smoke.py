@@ -4,9 +4,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is skipped):
-  1. setup: card name and power limit, build of csrc/tri_sweep.cu (nvcc,
-     sm_90a), its compile log, and each kernel's build facts (registers,
-     shared memory, spills, thread blocks per SM);
+  1. setup: card name and power limit, builds of csrc/tri_sweep.cu and
+     csrc/bvh_walk.cu (nvcc, sm_90a, both started together), their
+     compile logs, and each kernel's build facts (registers, shared
+     memory, spills, thread blocks per SM); a spill fails the run;
   2. kernel parity: each sweep kernel against its plain PyTorch version on
      four random meshes, on 4,096 random rays against the leaf-ordered
      rounded cube, and 100,000 rays from the cube's interior (0 leaks);
@@ -77,15 +78,22 @@ Phases (any failure exits non-zero; no phase is skipped):
      compared; the mis_box (config 2) on the card against the CPU at
      16x16, 4 spp;
  12. the 277,248-face gate of tools/large_scene.py: rounded_cube.ply
-     welded and Loop-subdivided 3 levels (host time of the subdivision
-     and of the table build), both kernels against their plain versions
-     on 4,096 random rays (phase 2's gates), the closest hit against a
-     numpy float64 brute force on 512 rays from outside (0 hit
-     mismatches, t relerr <= 1e-6), 0 leaks in 100,000 interior rays, a
-     config-3 regeneration wave on the mesh with both kernels held to
-     their plain versions and timed at its iterations 0 and 8 (pairs,
-     bound), and the fixed wave's fwd+bwd step (rays, rays/s, peak
-     memory; the TPU traced 398,828 rays);
+     welded and Loop-subdivided 3 levels (host time of the subdivision,
+     of the table build and of its native node build; the node build
+     again, native and numpy, byte-equal; the node count), both sweep
+     kernels and both walk kernels (csrc/bvh_walk.cu) against their plain
+     versions on 4,096 random rays, the closest hit of the sweep and of
+     the walk against a numpy float64 brute force on 512 rays from
+     outside (0 hit mismatches, t relerr <= 1e-6), 0 leaks in 100,000
+     interior rays through each, a config-3 regeneration wave on the mesh
+     (above 65,536 faces the port, as the JAX package off the TPU, takes
+     the BVH walk: 24 launches of each walk kernel, none of the sweeps)
+     with the walks and the sweeps held to their plain versions and timed
+     at the same rays, its iterations 0 and 8 (kernel-only ms, the bound
+     from the work the plain walk counts on those rays), and the fixed
+     wave's fwd+bwd step through the walk (rays, rays/s, peak memory,
+     MAX_DEPTH + 1 launches of each walk kernel; the TPU traced 398,828
+     rays);
  13. integrator modes and filters: the furnace through the CLI with the
      directlighting and whitted integrators (every pixel 1.5 +- 0.01 at
      64 spp) and BSDF sampling only through the API (2 +- 0.01 at depth
@@ -166,6 +174,32 @@ def stamp(result):
 def fail(msg):
     log(f"FAILED: {msg}")
     sys.exit(1)
+
+
+SWEEPS = ("tri_sweep_closest", "tri_sweep_any")
+WALKS = ("bvh_walk_closest", "bvh_walk_any")
+
+
+def reset_counts():
+    """Every kernel's launch count to 0: the sweeps' and the walks'."""
+    from fountain_tpu_torch.geometry.intersect import reset_kernel_launches
+    reset_kernel_launches()
+
+
+def read_counts():
+    """Every kernel's launch count, by name."""
+    from fountain_tpu_torch.geometry.intersect import kernel_launches
+    return kernel_launches()
+
+
+def only(launches, names, label):
+    """The counts of the kernels ``names``; fails if any other kernel
+    launched (a mesh of at most 65,536 faces goes through the sweeps, a
+    larger one through the walks)."""
+    stray = {k: v for k, v in launches.items() if k not in names and v}
+    if stray:
+        fail(f"{label}: launched {stray}, expected only {names}")
+    return {k: launches[k] for k in names}
 
 
 def build_scene(res, device):
@@ -299,7 +333,6 @@ def phase_parity(cube):
 def phase_wave(scene, cam):
     """One full-width wave; returns its numbers and the kernel inputs of
     iterations 0 and 8 (captured during the warm-up wave)."""
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.integrator.render import render_regen
     from fountain_tpu_torch.scene.film import finalize
@@ -311,13 +344,13 @@ def phase_wave(scene, cam):
         lambda: render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
                              seed=0), (0, 8))
     torch.cuda.reset_peak_memory_stats()
-    ts.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     film, n_rays = render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
                                 seed=0, count_rays=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(ts.launch_counts)
+    launches = read_counts()
     img = finalize(film)
     rays = int(n_rays)
     out = dict(rays_per_wave=rays, wave_s=dt, rays_per_s=rays / dt,
@@ -329,42 +362,46 @@ def phase_wave(scene, cam):
         fail("wave image is not finite")
     if out["n_done_min"] < 1:
         fail("a lane completed no sample")
-    for name, count in launches.items():
+    for name, count in only(launches, SWEEPS, "config-3 wave").items():
         if count != REGEN_ITERS:
             fail(f"{name} launched {count} times in the wave, expected "
                  f"{REGEN_ITERS}")
     return out, captured
 
 
-def capture_sweep_inputs(run, its):
-    """Run ``run()`` with each sweep wrapper recording clones of its inputs
-    (o, d, t_cap) at its launches number ``its`` (or ``its[kind]`` where
-    ``its`` is a dict by kind, "closest" and "any"); returns them by
-    (kind, launch)."""
+def capture_sweep_inputs(run, its, walk=False):
+    """Run ``run()`` with each sweep wrapper (each walk wrapper where
+    ``walk``) recording clones of its inputs (o, d, t_cap) at its launches
+    number ``its`` (or ``its[kind]`` where ``its`` is a dict by kind,
+    "closest" and "any"); returns them by (kind, launch)."""
+    from fountain_tpu_torch.geometry import bvh_walk as bw
     from fountain_tpu_torch.geometry import tri_sweep as ts
+    mod, n_tables = (bw, 2) if walk else (ts, 1)
     captured = {}
-    originals = {"closest": ts.closest_hit_kernel, "any": ts.any_hit_kernel}
+    originals = {"closest": mod.closest_hit_kernel,
+                 "any": mod.any_hit_kernel}
 
     def recorder(kind):
         calls = [0]
         wanted = its[kind] if isinstance(its, dict) else its
 
-        def wrapped(table, o, d, t_cap, *a, **k):
+        def wrapped(*a, **k):
+            o, d, t_cap = a[n_tables:n_tables + 3]
             if calls[0] in wanted:
                 captured[(kind, calls[0])] = tuple(
                     x.clone() for x in (*o, *d, t_cap))
             calls[0] += 1
-            return originals[kind](table, o, d, t_cap, *a, **k)
+            return originals[kind](*a, **k)
         return wrapped
 
-    ts.closest_hit_kernel = recorder("closest")
-    ts.any_hit_kernel = recorder("any")
+    mod.closest_hit_kernel = recorder("closest")
+    mod.any_hit_kernel = recorder("any")
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        ts.closest_hit_kernel = originals["closest"]
-        ts.any_hit_kernel = originals["any"]
+        mod.closest_hit_kernel = originals["closest"]
+        mod.any_hit_kernel = originals["any"]
     return captured
 
 
@@ -686,19 +723,18 @@ def _with_textures(scene, tv):
 
 
 def split_step(scene, cam, res, seed, n_iters=REGEN_ITERS):
-    """``bench.step`` in its two halves, with each sweep's launches in the
+    """``bench.step`` in its two halves, with each kernel's launches in the
     forward and in the backward pass (counts set to 0 just before the
     forward). Returns (loss, grad, forward launches, backward launches)."""
     from fountain_tpu_torch import bench
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     tv = scene.textures.value.detach().clone().requires_grad_(True)
-    ts.reset_launch_counts()
+    reset_counts()
     loss = bench.loss_of(bench.wave(_with_textures(scene, tv), cam, res,
                                     seed, n_iters))
-    fwd = dict(ts.launch_counts)
+    fwd = read_counts()
     loss.backward()
     torch.cuda.synchronize()
-    bwd = {k: ts.launch_counts[k] - fwd[k] for k in fwd}
+    bwd = {k: v - fwd[k] for k, v in read_counts().items()}
     return loss.detach(), tv.grad, fwd, bwd
 
 
@@ -823,7 +859,6 @@ def index_backward_ms(n, reps=5):
 def phase_step(scene, cam, n_timed=4):
     """The differentiable step at full width; fails on any gate."""
     from fountain_tpu_torch import bench
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     log(f"phase 8: the differentiable step, {RES}x{RES}, depth {MAX_DEPTH},"
         f" {REGEN_ITERS} iterations, NEE (fwd + autograd bwd w.r.t. the "
         "texture value table)")
@@ -836,18 +871,21 @@ def phase_step(scene, cam, n_timed=4):
     base_mem = torch.cuda.memory_allocated()
     times = []
     for i in range(n_timed):
-        ts.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         loss, grad = bench.step(scene, cam, RES, tv, i + 1)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        per_step = dict(ts.launch_counts)
-        if any(c != REGEN_ITERS for c in per_step.values()):
+        per_step = read_counts()
+        if any(c != REGEN_ITERS
+               for c in only(per_step, SWEEPS, "config-3 step").values()):
             fail(f"a step launched the sweeps {per_step} times, expected "
                  f"{REGEN_ITERS} each")
     peak = torch.cuda.max_memory_allocated()
     loss_s, grad_s, fwd, bwd = split_step(scene, cam, RES, n_timed)
-    if any(c != REGEN_ITERS for c in fwd.values()) or any(bwd.values()):
+    if any(c != REGEN_ITERS
+           for c in only(fwd, SWEEPS, "config-3 step, forward").values()) \
+            or any(bwd.values()):
         fail(f"sweep launches: forward {fwd}, backward {bwd}; expected "
              f"{REGEN_ITERS} and 0")
     g = grad[kd_row]
@@ -935,12 +973,11 @@ FLAG_ITS = (0, 6)      # sweep launches whose inputs phase 9 checks and times
 
 
 def run_cli(args, label):
-    """``cli.render.main(args)`` with its sweep launches (counts set to 0
+    """``cli.render.main(args)`` with its kernel launches (counts set to 0
     just before), its rays (each ``trace_paths`` call made to count them,
     as ``count_rays`` counts), its wall time and the image it saved.
     Fails unless the written EXR reads back equal to that image."""
     from fountain_tpu_torch.cli import render as cli
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     from fountain_tpu_torch.integrator import render as rd
     from fountain_tpu_torch.io import image as io_image
     from fountain_tpu_torch.io.exr import read_exr
@@ -961,12 +998,12 @@ def run_cli(args, label):
     rd.trace_paths, io_image.save_image = counting_trace, keep
     try:
         torch.cuda.synchronize()
-        ts.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         if cli.main(args) != 0:
             fail(f"{label}: the CLI returned non-zero")
         wall = time.perf_counter() - t0
-        launches = dict(ts.launch_counts)
+        launches = read_counts()
     finally:
         rd.trace_paths, io_image.save_image = orig_trace, orig_save
     (path, img), = saved.items()
@@ -1060,7 +1097,7 @@ def phase_flagship():
             f"{st.max_depth}): " + json.dumps(res))
         if not (res["finite"] and res["exr_equal"]):
             fail(f"logo_cube {label}: image not finite or EXR differs")
-        if min(res["launches"].values()) < 1:
+        if min(only(res["launches"], SWEEPS, label).values()) < 1:
             fail(f"logo_cube {label}: a sweep kernel was not launched")
         if min(res["channel_mean"]) <= 0.0:
             fail(f"logo_cube {label}: black image")
@@ -1157,10 +1194,13 @@ def phase_flagship_step():
             f"{MAX_DEPTH}, NEE, RR; d/d (texture values, atlas texels) of "
             "(r.x + r.y + r.z).sum() / 3")
         rec = bench.measure_flagship(scene, cam, RES, STEP_TIMED, detach)
+        for run in ("fwd", "bwd"):   # every kernel's counts in one dict
+            rec[f"launches_{run}"] |= rec.pop(f"walk_launches_{run}")
         for key, value in rec.items():
             log(f"  {key}: {json.dumps(value)}")
         want = MAX_DEPTH + 1
-        if any(c != want for c in rec["launches_fwd"].values()) \
+        if any(c != want for c in only(rec["launches_fwd"], SWEEPS,
+                                       "flagship step").values()) \
                 or any(rec["launches_bwd"].values()):
             fail(f"flagship step launches: forward {rec['launches_fwd']}, "
                  f"backward {rec['launches_bwd']}; expected {want} and 0")
@@ -1258,6 +1298,7 @@ def phase_all_configs(step, fstep):
         f"{BENCH_ALL_OUT})")
     rows = {}
     for row in bench.measure_all(DEVICE, RES, reps=8, fwdbwd=False):
+        row["launches"] |= row.pop("walk_launches")
         name = row["config"]
         ref = tpu[name]["rays_per_wave"]
         row.update(tpu_rays_per_wave=ref,
@@ -1268,7 +1309,8 @@ def phase_all_configs(step, fstep):
             fail(f"{name}: {row['rays_per_wave']} rays a wave, the TPU's "
                  f"{ref}")
         scene_has_faces = name not in ("furnace_empty", "metal_textured_ggx")
-        if scene_has_faces != (min(row["launches"].values()) > 0):
+        if scene_has_faces != (
+                min(only(row["launches"], SWEEPS, name).values()) > 0):
             fail(f"{name}: sweep launches {row['launches']}")
         rows[name] = row
     rows["rounded_cube_env"].update(
@@ -1343,34 +1385,200 @@ def brute_closest(tv, o, d):
     return best_t, best_i
 
 
+# The BVH walk (csrc/bvh_walk.cu). Kernel against plain walk: the same
+# operations in the same order (the file is built with -fmad=false), so
+# bit equality is expected; the gate on t is T_RTOL_WALK.
+T_RTOL_WALK = 1e-6
+# FP32 operations of the walk (no FMAs; abs and negation, bit operations,
+# not counted). A node visit, the slab test: 6 subtractions and 6
+# multiplications for the six slab distances, 3 min and 3 max of their
+# pairs, 2 max for t_near, 2 min for t_far, 1 multiplication by
+# 1 + 2 gamma(3), 3 comparisons: 26.
+SLAB_OPS = 26
+# A leaf slot, the Woop test: 9 subtractions (translate), 12 (shear), 111
+# (three compensated differences of products: two Veltkamp products of 17
+# and 3 subtractions or additions each), 6 comparisons (same sign), 2
+# (det), 3 (z), 5 (t_scaled), 4 (in range), 2 (det = 0 and 1 / det), 1
+# (t), 6 (three maxima of three), 12 (delta_z, delta_x, delta_y,
+# delta_e), 2 (max_e), 8 (delta_t), 2 (det != 0, t > delta_t): 185.
+WOOP_OPS = 185
+# A live ray's setup: 3 tests d = 0 and 3 reciprocals, 3 comparisons for
+# the dominant axis, the t_max tests (2), 1 / d_z and the shear's 2
+# multiplications: 14.
+RAY_OPS = 14
+WALK_ITS = (0, 8)      # walk launches of the wave phase 12 checks and times
+
+
+def check_walk(any_hit, scene, o, d, t_max, label):
+    """One walk kernel against its plain version on the same rays; fails on
+    any difference past the gates. Returns the max |kernel - plain| over
+    the hits' t (closest hit; 0 for any hit) and the plain call's ms."""
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    args = (scene.bvh_nodes8, scene.bvh_tri_verts, o, d, t_max)
+    if any_hit:
+        occ_k = bw.any_hit_kernel(*args)
+        occ_p, plain_ms = timed_call(lambda: bw.any_hit_plain(*args))
+        n_mis = int((occ_k != occ_p).sum())
+        log(f"  {label}, walk any hit: rays={o.shape[0]} "
+            f"occluded={int(occ_p.sum())} mismatch={n_mis}")
+        if n_mis:
+            fail(f"walk any-hit parity: {label}")
+        return 0.0, plain_ms
+    t_k, i_k = bw.closest_hit_kernel(*args)
+    (t_p, i_p), plain_ms = timed_call(lambda: bw.closest_hit_plain(*args))
+    hit_k, hit_p = i_k >= 0, i_p >= 0
+    n_hit_mis = int((hit_k != hit_p).sum())
+    m = hit_k & hit_p
+    n_idx_mis = int((i_k[m] != i_p[m]).sum())
+    err = (t_k[m] - t_p[m]).abs()
+    rel_max = float((err / t_p[m].abs().clamp_min(1e-9)).max()) \
+        if bool(m.any()) else 0.0
+    abs_max = float(err.max()) if bool(m.any()) else 0.0
+    n_bits = int((t_k[m] != t_p[m]).sum())
+    log(f"  {label}, walk closest hit: rays={o.shape[0]} "
+        f"hits={int(hit_p.sum())} hit_mismatch={n_hit_mis} "
+        f"idx_mismatch={n_idx_mis} t_rel_max={rel_max:.3e} "
+        f"t_not_bit_equal={n_bits}")
+    if n_hit_mis or n_idx_mis or rel_max > T_RTOL_WALK:
+        fail(f"walk closest-hit parity: {label}")
+    return abs_max, plain_ms
+
+
+def walk_kernel_call(name, scene, o, d, t_max):
+    """A zero-argument call of a walk's library function alone, with its
+    outputs allocated up front; it returns the launch's error code."""
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    nodes, verts = scene.bvh_nodes8, scene.bvh_tri_verts
+    cols = bw._ray_args(nodes, verts, o, d, t_max)
+    n = t_max.shape[0]
+    outs = ((torch.empty(n, dtype=torch.bool, device=DEVICE),)
+            if name == "bvh_walk_any" else
+            (torch.empty(n, device=DEVICE),
+             torch.empty(n, dtype=torch.int32, device=DEVICE)))
+    call = functools.partial(getattr(bw._library(), name),
+                             *bw.launch_args(nodes, verts, cols, outs))
+    call.buffers = (cols, outs)  # alive as long as the call: it holds pointers
+    return call
+
+
+def walk_work(any_hit, scene, o, d, t_max):
+    """The work these rays need in the walk, counted by the plain walk:
+    node visits, leaf slots tested, distinct node and vertex rows read,
+    and the live rays (t_max > 0 after a non-finite limit becomes
+    3e38)."""
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    stats = {}
+    fn = bw.any_hit_plain if any_hit else bw.closest_hit_plain
+    fn(scene.bvh_nodes8, scene.bvh_tri_verts, o, d, t_max, stats=stats)
+    t = torch.where(torch.isfinite(t_max), t_max, 3e38)
+    stats["live"] = int((t > 0).sum())
+    return stats
+
+
+def walk_bound(any_hit, n, work):
+    """(bound ms, "bytes" or "operations") of a walk launch: rays in (7
+    floats) and results out (t and idx, or one flag), the distinct node
+    rows (32 B) and vertex rows (36 B) read, over the HBM rate; the
+    operations the work needs over the FP32 rate."""
+    bytes_ = n * 28 + n * (1 if any_hit else 8) \
+        + work["nodes_touched"] * 32 + work["faces_touched"] * 36
+    ops = work["node_visits"] * SLAB_OPS + work["woop_tests"] * WOOP_OPS \
+        + work["live"] * RAY_OPS
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), bytes_, ops
+
+
+def phase_walk_times(scene, captured):
+    """Each walk kernel at a wave's own inputs (``captured`` by kind and
+    launch, from ``capture_sweep_inputs(..., walk=True)``): held to its
+    plain version, timed (wrapper, and the library call alone), and set
+    against its bound from the work the plain walk counts on the same
+    rays. Returns the rows by (kernel, launch)."""
+    from fountain_tpu_torch.core.vecmath import V3
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    names = {"closest": "bvh_walk_closest", "any": "bvh_walk_any"}
+    rows = {}
+    for kind, it in sorted(captured,
+                           key=lambda k: (k[0] != "closest", k[1])):
+        name = names[kind]
+        any_hit = kind == "any"
+        kern = bw.any_hit_kernel if any_hit else bw.closest_hit_kernel
+        ox, oy, oz, dx, dy, dz, t_max = captured[(kind, it)]
+        o, d = V3(ox, oy, oz), V3(dx, dy, dz)
+        n = t_max.shape[0]
+        err, plain_ms = check_walk(any_hit, scene, o, d, t_max,
+                                   f"{name} launch {it}")
+        ms = time_cuda(lambda: kern(scene.bvh_nodes8, scene.bvh_tri_verts,
+                                    o, d, t_max), 20)
+        call = walk_kernel_call(name, scene, o, d, t_max)
+        events_ms(call, 1)
+        k_ms = events_ms(call, 30)
+        work = walk_work(any_hit, scene, o, d, t_max)
+        bound, by, bytes_, ops = walk_bound(any_hit, n, work)
+        row = dict(rays=n, ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, bytes=bytes_,
+                   operations=ops, max_abs_err=err, **work)
+        log(f"  {name} launch {it}: " + json.dumps(row))
+        rows[(name, it)] = row
+    return rows
+
+
 def phase_large_scene():
     """The JAX package's 277,248-face gate (tools/large_scene.py) on the
-    port: host build, both kernels against their plain versions, the
-    closest hit against a float64 brute force, interior leaks, kernel
-    times at a config-3 wave's inputs on this mesh, and the fixed wave's
-    fwd+bwd step. Fails on any gate."""
+    port: host build (the native node build, and the numpy one equal to
+    it), both sweep kernels and both walk kernels against their plain
+    versions, the closest hit of each against a float64 brute force,
+    interior leaks through each, a config-3 wave on this mesh (through the
+    walk, as the JAX package takes it off the TPU above 65,536 faces) with
+    the walk and the sweeps timed at its iterations 0 and 8, and the fixed
+    wave's fwd+bwd step through the walk. Fails on any gate."""
     from fountain_tpu_torch import bench
+    from fountain_tpu_torch import native
     from fountain_tpu_torch.core.vecmath import V3
+    from fountain_tpu_torch.geometry import bvh
+    from fountain_tpu_torch.geometry import bvh_walk as bw
     from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.geometry.tensor_tri import MAX_DENSE_FACES
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.integrator.render import render_regen
     log("phase 12: the large-scene gate (rounded_cube.ply welded, Loop "
         "subdivision 3 levels)")
     scene, cam, host = bench.build_large_scene(DEVICE, RES)
     table = scene.tri_sweep
-    out = dict(faces=scene.triangles.count, blocks=table.n_blocks, **host)
-    log("  " + json.dumps(out))
-    if out["faces"] != LARGE_FACES:
+    out = dict(faces=scene.triangles.count, blocks=table.n_blocks,
+               nodes=scene.bvh_nodes8.shape[0], **host)
+    if out["faces"] != LARGE_FACES or out["faces"] <= MAX_DENSE_FACES:
         fail(f"the subdivided mesh has {out['faces']} faces")
+    # the node build again from the leaf-ordered faces: native and numpy,
+    # byte-equal, and (the order being already sorted) equal to the
+    # scene's own node rows
+    tv = scene.bvh_tri_verts.cpu().numpy()
+    bmin, bmax = tv.min(1), tv.max(1)
+    t0 = time.perf_counter()
+    cc = native.lbvh_build(bmin, bmax, bvh.LEAF_SIZE)
+    t1 = time.perf_counter()
+    py = bvh.build_lbvh(bmin, bmax)
+    t2 = time.perf_counter()
+    out.update(nodes_native_s=t1 - t0, nodes_numpy_s=t2 - t1)
+    log("  " + json.dumps(out))
+    if not all(a.tobytes() == b.tobytes() for a, b in zip(cc, py)) \
+            or not np.array_equal(py[3], np.arange(len(tv))) \
+            or not np.array_equal(bvh.pack_nodes(*py[:3]),
+                                  scene.bvh_nodes8.cpu().numpy()):
+        fail("the native and numpy node builds differ at 277k faces")
     rng = np.random.default_rng(7)
     o = rng.uniform(-25, 25, (4096, 3)).astype(np.float32)
     d = rng.normal(size=(4096, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o4, d4 = (v3(torch.as_tensor(a, device=DEVICE)) for a in (o, d))
+    cap4 = torch.full((4096,), 3e38, device=DEVICE)
     out["random_max_abs_err"] = compare(
-        table, v3(torch.as_tensor(o, device=DEVICE)),
-        v3(torch.as_tensor(d, device=DEVICE)),
-        torch.full((4096,), 3e38, device=DEVICE), "277k faces, 4096 random "
-        "rays")
+        table, o4, d4, cap4, "277k faces, 4096 random rays")
+    check_walk(True, scene, o4, d4, cap4, "277k faces, 4096 random rays")
+    out["walk_random_max_abs_err"] = check_walk(
+        False, scene, o4, d4, cap4, "277k faces, 4096 random rays")[0]
 
     # oracle rays from outside the mesh (as tools/large_scene.py)
     o = rng.uniform(-30, 30, (N_ORACLE, 3))
@@ -1378,62 +1586,86 @@ def phase_large_scene():
     d = rng.uniform(-5, 5, (N_ORACLE, 3)) - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     tri = scene.triangles
-    tv = tri.positions.cpu().double().numpy()[tri.indices.cpu().long()
-                                              .numpy()]
+    tv64 = tri.positions.cpu().double().numpy()[tri.indices.cpu().long()
+                                                .numpy()]
     t0 = time.perf_counter()
-    ref_t, _ = brute_closest(tv, o, d)
+    ref_t, _ = brute_closest(tv64, o, d)
     brute_s = time.perf_counter() - t0
-    t_k, i_k = ts.closest_hit_kernel(
-        table, v3(torch.as_tensor(o, dtype=torch.float32, device=DEVICE)),
-        v3(torch.as_tensor(d, dtype=torch.float32, device=DEVICE)),
-        torch.full((N_ORACLE,), 3e38, device=DEVICE))
-    t_k, hit_k = t_k.cpu().double().numpy(), (i_k >= 0).cpu().numpy()
+    o_k, d_k = (v3(torch.as_tensor(a, dtype=torch.float32, device=DEVICE))
+                for a in (o, d))
+    cap_k = torch.full((N_ORACLE,), 3e38, device=DEVICE)
     hit_ref = np.isfinite(ref_t)
-    m = hit_ref & hit_k
-    rel = np.abs(t_k[m] - ref_t[m]) / np.maximum(ref_t[m], 1e-9)
-    oracle = dict(rays=N_ORACLE, hits=int(hit_ref.sum()),
-                  hit_mismatches=int((hit_ref != hit_k).sum()),
-                  t_relerr_max=float(rel.max()) if m.any() else 0.0,
-                  brute_force_s=brute_s)
-    log("  oracle, closest hit against numpy float64 (gates: 0 hit "
-        "mismatches, t relerr <= 1e-6): " + json.dumps(oracle))
-    if oracle["hit_mismatches"] or oracle["t_relerr_max"] > 1e-6:
-        fail("the closest hit disagrees with the brute force at 277k faces")
-    out["oracle"] = oracle
+    for label, (t_k, i_k) in (
+            ("sweep", ts.closest_hit_kernel(table, o_k, d_k, cap_k)),
+            ("walk", bw.closest_hit_kernel(scene.bvh_nodes8,
+                                           scene.bvh_tri_verts, o_k, d_k,
+                                           cap_k))):
+        t_k, hit_k = t_k.cpu().double().numpy(), (i_k >= 0).cpu().numpy()
+        m = hit_ref & hit_k
+        rel = np.abs(t_k[m] - ref_t[m]) / np.maximum(ref_t[m], 1e-9)
+        oracle = dict(rays=N_ORACLE, hits=int(hit_ref.sum()),
+                      hit_mismatches=int((hit_ref != hit_k).sum()),
+                      t_relerr_max=float(rel.max()) if m.any() else 0.0,
+                      brute_force_s=brute_s)
+        log(f"  oracle, the {label}'s closest hit against numpy float64 "
+            "(gates: 0 hit mismatches, t relerr <= 1e-6): "
+            + json.dumps(oracle))
+        if oracle["hit_mismatches"] or oracle["t_relerr_max"] > 1e-6:
+            fail(f"the {label}'s closest hit disagrees with the brute force "
+                 "at 277k faces")
+        out[f"oracle_{label}"] = oracle
 
     nw = 100_000
     dirs = rng.normal(size=(nw, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     zero = torch.zeros(nw, device=DEVICE)
-    _, idx = ts.closest_hit_kernel(table, V3(zero, zero, zero),
-                                   v3(torch.as_tensor(dirs, device=DEVICE)),
-                                   torch.full((nw,), 3e38, device=DEVICE))
-    out["leaks"] = int((idx < 0).sum())
-    log(f"  watertight: {out['leaks']} leaks / {nw} interior rays")
-    if out["leaks"]:
+    o_in, d_in = V3(zero, zero, zero), v3(torch.as_tensor(dirs,
+                                                          device=DEVICE))
+    cap_in = torch.full((nw,), 3e38, device=DEVICE)
+    _, idx = ts.closest_hit_kernel(table, o_in, d_in, cap_in)
+    _, idx_w = bw.closest_hit_kernel(scene.bvh_nodes8, scene.bvh_tri_verts,
+                                     o_in, d_in, cap_in)
+    occ_w = bw.any_hit_kernel(scene.bvh_nodes8, scene.bvh_tri_verts, o_in,
+                              d_in, cap_in)
+    out.update(leaks=int((idx < 0).sum()), walk_leaks=int((idx_w < 0).sum()),
+               walk_any_leaks=int((~occ_w).sum()))
+    log(f"  watertight: {out['leaks']} leaks (sweep), {out['walk_leaks']} "
+        f"(walk, closest hit), {out['walk_any_leaks']} (walk, any hit) / "
+        f"{nw} interior rays")
+    if out["leaks"] or out["walk_leaks"] or out["walk_any_leaks"]:
         fail("interior rays leaked at 277k faces")
 
     cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
     captured = capture_sweep_inputs(
         lambda: render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
-                             seed=0), (0, 8))
-    ts.reset_launch_counts()
+                             seed=0), WALK_ITS, walk=True)
+    reset_counts()
     t0 = time.perf_counter()
     film, n_rays = render_regen(scene, cam, RES, RES, REGEN_ITERS, cfg,
                                 seed=0, count_rays=True)
     torch.cuda.synchronize()
     wave = dict(wave_s=time.perf_counter() - t0, rays=int(n_rays),
-                launches=dict(ts.launch_counts),
+                launches=read_counts(),
                 n_done_min=int(film.weight_sum.min()))
     wave["rays_per_s"] = wave["rays"] / wave["wave_s"]
     log(f"  config-3 regeneration wave on this mesh ({RES}x{RES}, "
-        f"{REGEN_ITERS} iterations, uniform light): " + json.dumps(wave))
-    if any(c != REGEN_ITERS for c in wave["launches"].values()):
+        f"{REGEN_ITERS} iterations, uniform light; through the walk): "
+        + json.dumps(wave))
+    if any(c != REGEN_ITERS
+           for c in only(wave["launches"], WALKS, "277k wave").values()) \
+            or wave["n_done_min"] < 1:
         fail(f"277k wave launches {wave['launches']}")
     out["wave"] = wave
-    log("  kernels at the wave's inputs (iterations 0 and 8; gates as in "
-        "phase 2)")
-    out["kernels"] = phase_kernel_times(scene, captured)
+    log("  walk kernels at the wave's inputs (iterations 0 and 8; gates: "
+        f"hit masks equal, idx equal on hits, t rtol {T_RTOL_WALK}, any-hit "
+        "equal)")
+    out["walks"] = phase_walk_times(scene, captured)
+    log("  sweep kernels at the same inputs (t_max as the sweep takes it: "
+        "non-finite -> 3e38; gates as in phase 2)")
+    out["kernels"] = phase_kernel_times(scene, {
+        key: (*cols[:6], torch.where(torch.isfinite(cols[6]), cols[6],
+                                     3e38))
+        for key, cols in captured.items()})
 
     # the fixed wave's fwd+bwd step, as tools/large_scene.py times it
     tv_ = scene.textures.value
@@ -1443,7 +1675,7 @@ def phase_large_scene():
     torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(4):
-        ts.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         loss, grad = bench.step(scene, cam, RES, tv_, i + 1, regen=False)
         torch.cuda.synchronize()
@@ -1452,12 +1684,14 @@ def phase_large_scene():
                 step_s=times, median_step_s=float(np.median(times)),
                 rays_per_s_fwd_bwd=4 * rays / sum(times),
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
-                launches_per_step=dict(ts.launch_counts),
+                launches_per_step=read_counts(),
                 grad_finite=bool(torch.isfinite(grad).all()))
     log(f"  fixed-wave fwd+bwd step ({RES}x{RES}, depth {MAX_DEPTH}; 4 "
-        "timed steps after a warm-up): " + json.dumps(step))
+        "timed steps after a warm-up; through the walk): "
+        + json.dumps(step))
     if not step["grad_finite"] or any(
-            c != MAX_DEPTH + 1 for c in step["launches_per_step"].values()):
+            c != MAX_DEPTH + 1 for c in only(step["launches_per_step"], WALKS,
+                                             "277k step").values()):
         fail("the 277k step's gradient or launches are off")
     if abs(rays - 398_828) > RAYS_RTOL * 398_828:
         fail(f"the 277k wave traces {rays} rays, the TPU's 398,828")
@@ -1478,7 +1712,6 @@ def phase_modes():
     Fails on any gate."""
     from fountain_tpu_torch import bench
     from fountain_tpu_torch.core import transform as tf
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.integrator.render import render
     from fountain_tpu_torch.io.pbrt import load_pbrt
@@ -1538,22 +1771,23 @@ def phase_modes():
                for kind, k in zip(("closest", "any"), want)}
         captured = capture_sweep_inputs(
             lambda: bench.wave(scene, cam, RES, 0, regen=False, cfg=cfg), its)
-        ts.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with torch.no_grad():
             r, n_rays = bench.wave(scene, cam, RES, 1, regen=False,
                                    count_rays=True, cfg=cfg)
         torch.cuda.synchronize()
+        launches = read_counts()
         rec = dict(wave_s=time.perf_counter() - t0, rays=int(n_rays),
-                   launches=dict(ts.launch_counts),
+                   launches=launches,
                    launches_per_bounce={k: v / (MAX_DEPTH + 1) for k, v in
-                                        ts.launch_counts.items()},
+                                        launches.items()},
                    mean=float((r.x + r.y + r.z).mean() / 3.0))
         rec["rays_per_s"] = rec["rays"] / rec["wave_s"]
         log(f"  mis_box fixed wave, {mode} ({RES}x{RES}, depth "
             f"{MAX_DEPTH}): " + json.dumps(rec))
-        got = (rec["launches"]["tri_sweep_closest"],
-               rec["launches"]["tri_sweep_any"])
+        got = tuple(only(rec["launches"], SWEEPS,
+                         f"mis_box {mode}").values())
         if got != tuple(w * (MAX_DEPTH + 1) for w in want) \
                 or not np.isfinite(rec["mean"]):
             fail(f"mis_box {mode}: launches {got}")
@@ -1615,8 +1849,7 @@ def sharded_runs(scene, cam, sharded, res):
     image under no_grad, then the step (the backward of the image mean to
     the texture values, summed over the ranks when sharded). Returns
     (image, the step's image, gradient, record of each run's wall time and
-    sweep launches, counts set to 0 just before each run)."""
-    from fountain_tpu_torch.geometry import tri_sweep as ts
+    kernel launches, counts set to 0 just before each run)."""
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.integrator.render import render
     from fountain_tpu_torch.parallel import shard
@@ -1627,7 +1860,7 @@ def sharded_runs(scene, cam, sharded, res):
         tv = scene.textures.value.detach().clone().requires_grad_(step)
         s = _with_textures(scene, tv)
         _sync(scene.device)
-        ts.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         with torch.set_grad_enabled(step):
             img = fn(s, cam, res, res, SHARD_SPP, cfg, seed=0)
@@ -1637,7 +1870,7 @@ def sharded_runs(scene, cam, sharded, res):
                     shard.all_reduce_grads([tv])
         _sync(scene.device)
         return (img.detach().cpu(), tv.grad,
-                time.perf_counter() - t0, dict(ts.launch_counts))
+                time.perf_counter() - t0, read_counts())
     img, _, fwd_s, fwd_l = run(False)
     img_step, grad, step_s, step_l = run(True)
     return img, img_step, grad.cpu(), dict(
@@ -1662,7 +1895,6 @@ def _nccl_rank(rank, device, out_dir, res):
     """Phase 14's NCCL process at world size 1: the barrier, then
     ``render_sharded`` (its film through NCCL's all_reduce) against
     ``render`` on the same scene."""
-    from fountain_tpu_torch.geometry import tri_sweep as ts
     from fountain_tpu_torch.integrator.path import PathConfig
     from fountain_tpu_torch.integrator.render import render
     from fountain_tpu_torch.parallel import shard
@@ -1671,11 +1903,11 @@ def _nccl_rank(rank, device, out_dir, res):
     cfg = PathConfig(max_depth=MAX_DEPTH, rr_threshold=1.0, nee=True)
     with torch.no_grad():
         _sync(device)
-        ts.reset_launch_counts()
+        reset_counts()
         img = shard.render_sharded(scene, cam, res, res, SHARD_SPP, cfg,
                                    n_devices=1, seed=0)
         _sync(device)
-        launches = dict(ts.launch_counts)
+        launches = read_counts()
         ref = render(scene, cam, res, res, SHARD_SPP, cfg, seed=0)
     rec = dict(backend=torch.distributed.get_backend(),
                world=torch.distributed.get_world_size(),
@@ -1757,7 +1989,8 @@ def phase_sharded(scene, cam):
             fail(f"phase 14: rank {rec['rank']}'s image or gradient differs "
                  "from one process's")
         for run in ("launches_fwd", "launches_step"):
-            if min(rec[run].values()) < 1:
+            if min(only(rec[run], SWEEPS, f"rank {rec['rank']}").values()) \
+                    < 1:
                 fail(f"phase 14: rank {rec['rank']} launched no sweep in "
                      f"{run}")
     log(f"  gloo ranks: {spawn_s:.2f} s for the whole spawn (start, init, "
@@ -1766,7 +1999,8 @@ def phase_sharded(scene, cam):
     nccl["spawn_s"] = nccl_spawn_s
     log("  NCCL at world size 1 (gate: bit-equal to render): "
         + json.dumps(nccl))
-    if not nccl["bit_equal"] or min(nccl["launches"].values()) < 1 \
+    if not nccl["bit_equal"] \
+            or min(only(nccl["launches"], SWEEPS, "NCCL").values()) < 1 \
             or nccl["world"] != 1:
         fail("phase 14: the NCCL render differs from render")
     out.update(single=single, ranks=ranks, nccl=nccl)
@@ -1797,7 +2031,7 @@ def phase_sharded(scene, cam):
                      "logo_cube --devices 1")
     log("  CLI logo_cube --devices 1 --samples 2: " + json.dumps(res))
     if not (res["finite"] and res["exr_equal"]) \
-            or min(res["launches"].values()) < 1:
+            or min(only(res["launches"], SWEEPS, "--devices 1").values()) < 1:
         fail("phase 14: --devices 1 did not render through both kernels")
     out["cli_devices1"] = res
 
@@ -1863,6 +2097,9 @@ def main():
             "needs an NVIDIA card")
         return 1
     sys.path.insert(0, ROOT)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fountain_tpu_torch.geometry import bvh_walk as bw
     from fountain_tpu_torch.geometry import tri_sweep as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1872,13 +2109,18 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"phase 1: card {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
+    # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    lib = ts.build_library()
-    log(f"  built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(ts.NVCC_FLAGS)})")
-    for line in ts.build_log.splitlines():
-        log("  nvcc: " + line)
+    with ThreadPoolExecutor(len(ts.SOURCES)) as pool:
+        libs = dict(zip(ts.SOURCES, pool.map(ts.build_library, ts.SOURCES)))
+    log(f"  built {', '.join(os.path.relpath(p, ROOT) for p in libs.values())}"
+        f" in {time.perf_counter() - t0:.1f} s (nvcc "
+        f"{' '.join(ts.NVCC_FLAGS)}; per source {json.dumps(ts.SOURCES)})")
+    for src, text in ts.build_logs.items():
+        for line in text.splitlines():
+            log(f"  nvcc {src}: " + line)
     info = {name: ts.kernel_info(name) for name in ts.KERNELS}
+    info.update({name: bw.kernel_info(name) for name in bw.KERNELS})
     for name, facts in info.items():
         log(f"  {name}: " + json.dumps(facts))
         if facts["local_bytes"]:
@@ -1979,6 +2221,27 @@ def main():
                 est: dict(fwd=rec["launches_fwd"][name],
                           bwd=rec["launches_bwd"][name])
                 for est, rec in fstep.items()}))
+    for name in WALKS:
+        rows = {it: large["walks"][(name, it)] for it in WALK_ITS}
+        r8 = rows[8]
+        sweep = "tri_sweep_any" if name == "bvh_walk_any" \
+            else "tri_sweep_closest"
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="fountain_tpu_torch/csrc/bvh_walk.cu",
+            replaces="fountain_tpu/geometry/bvh.py:251 (bvh_intersect, a "
+                     "jnp while_loop, no pallas_call)",
+            launches=large["wave"]["launches"][name],
+            launches_per_step=large["step"]["launches_per_step"][name],
+            launches_by_path={k: v[name] for k, v in paths.items()},
+            max_abs_err=max(large["walk_random_max_abs_err"],
+                            *(r["max_abs_err"] for r in rows.values())),
+            ms=r8["ms"], plain_ms=r8["plain_ms"], bound_ms=r8["bound_ms"],
+            bound_by=r8["bound_by"], library_ms=None,
+            kernel_ms=r8["kernel_ms"], build=info[name],
+            large_mesh={f"it{it}": dict(row, sweep_at_same_rays={
+                k: large["kernels"][(sweep, it)][k] for k in ROW_KEYS})
+                for it, row in rows.items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -205,13 +205,22 @@ def flagship_step(scene, cam, res: int, seed, detach_sampling: bool = True,
     return loss.detach(), tv.grad, texels.grad
 
 
+def _split_launches(counts: dict):
+    """(the sweeps' counts, the walks' counts) of a kernel_launches() dict."""
+    from fountain_tpu_torch.geometry.bvh_walk import KERNELS
+    return ({k: v for k, v in counts.items() if k not in KERNELS},
+            {k: v for k, v in counts.items() if k in KERNELS})
+
+
 def measure_flagship(scene, cam, res: int, n_timed: int,
                      detach_sampling: bool = True) -> dict:
     """A warm-up flagship step (seed 0), then ``n_timed`` timed steps
     (seeds 1..n_timed; host clock, each ending in a synchronize on a card)
-    with each sweep's launches in a step's forward and backward passes.
-    Returns the numbers as a JSON-ready dict."""
-    from fountain_tpu_torch.geometry import tri_sweep as ts
+    with each sweep's launches in a step's forward and backward passes
+    (``launches_*``) and each walk's (``walk_launches_*``). Returns the
+    numbers as a JSON-ready dict."""
+    from fountain_tpu_torch.geometry.intersect import (kernel_launches,
+                                                       reset_kernel_launches)
     cuda = scene.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     rays = count_rays(scene, cam, res, 0, regen=False)
@@ -221,16 +230,18 @@ def measure_flagship(scene, cam, res: int, n_timed: int,
         torch.cuda.reset_peak_memory_stats()
     times = []
     for i in range(n_timed):
-        ts.reset_launch_counts()
+        reset_kernel_launches()
         t0 = time.perf_counter()
         loss, tv, texels = flagship_forward(scene, cam, res, i + 1,
                                             detach_sampling)
-        fwd = dict(ts.launch_counts)
+        fwd = kernel_launches()
         loss.backward()
         sync()
         times.append(time.perf_counter() - t0)
-        bwd = {k: ts.launch_counts[k] - fwd[k] for k in fwd}
+        bwd = {k: v - fwd[k] for k, v in kernel_launches().items()}
     g_tv, g_tx = tv.grad, texels.grad
+    (fwd, walk_fwd), (bwd, walk_bwd) = _split_launches(fwd), \
+        _split_launches(bwd)
     return dict(
         estimator="detached" if detach_sampling else "attached", res=res,
         rays_per_wave=rays, step_s=times,
@@ -240,7 +251,8 @@ def measure_flagship(scene, cam, res: int, n_timed: int,
         grad_texels_sum=float(g_tx.sum()),
         grad_finite=bool(torch.isfinite(g_tv).all()
                          and torch.isfinite(g_tx).all()),
-        launches_fwd=fwd, launches_bwd=bwd,
+        launches_fwd=fwd, launches_bwd=bwd, walk_launches_fwd=walk_fwd,
+        walk_launches_bwd=walk_bwd,
         max_memory_allocated=torch.cuda.max_memory_allocated()
         if cuda else None)
 
@@ -334,8 +346,9 @@ def build_large_scene(device=None, res: int = RES):
     data/rounded_cube.ply welded and Loop-subdivided 3 times (277,248
     faces) with its limit normals, matte kd (0.6, 0.5, 0.4),
     under a uniform infinite light, with config 3's camera; then leaf
-    order and sweep tables (``attach_bvh``). Returns (scene, camera,
-    host seconds of the subdivision and of the build)."""
+    order, the BVH and the per-face tables (``attach_bvh``). Returns
+    (scene, camera, host seconds of the subdivision, of the whole build,
+    and of its native node build and its tables)."""
     from fountain_tpu_torch.core import transform as tf
     from fountain_tpu_torch.geometry.bvh import attach_bvh
     from fountain_tpu_torch.geometry.loop_subdiv import (loop_subdivide,
@@ -354,12 +367,13 @@ def build_large_scene(device=None, res: int = RES):
     mat = b.add_matte(kd=[0.6, 0.5, 0.4])
     b.add_triangle_mesh(p, f, normals=nrm, mat_id=mat)
     b.add_infinite_light([1.0, 1.0, 1.0])
-    scene = attach_bvh(b.build(device=device))
+    parts = {}
+    scene = attach_bvh(b.build(device=device), times=parts)
     t2 = time.perf_counter()
     cam = make_perspective_camera(
         tf.look_at([25.0, -30.0, 18.0], [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]),
         (res, res), fov_deg=45.0)
-    return scene, cam, dict(subdivide_s=t1 - t0, build_s=t2 - t1)
+    return scene, cam, dict(subdivide_s=t1 - t0, build_s=t2 - t1, **parts)
 
 
 def _fixed_forward(scene, cam, res, seed, cfg=CFG):
@@ -375,22 +389,26 @@ def measure_config(name: str, scene, cam, res: int = RES, reps: int = 8,
     forward time (a warm-up, then ``reps`` waves of seeds 1..reps, each
     ending in a synchronize on a card) and, for configs with a step
     (``CONFIGS``) when ``fwdbwd``, the same for fwd+bwd; each sweep's
-    launches in one forward wave."""
-    from fountain_tpu_torch.geometry import tri_sweep as ts
+    (``launches``) and each walk's (``walk_launches``) launches in one
+    forward wave."""
+    from fountain_tpu_torch.geometry.intersect import (kernel_launches,
+                                                       reset_kernel_launches)
     sync = torch.cuda.synchronize if scene.device.type == "cuda" \
         else (lambda: None)
     rays = count_rays(scene, cam, res, 0, regen=False)
     _fixed_forward(scene, cam, res, 0)
     sync()
-    ts.reset_launch_counts()
+    reset_kernel_launches()
     t0 = time.perf_counter()
     for i in range(reps):
         _fixed_forward(scene, cam, res, i + 1)
         sync()
     dt = (time.perf_counter() - t0) / reps
+    sweeps, walks = _split_launches(
+        {k: v // reps for k, v in kernel_launches().items()})
     row = dict(config=name, res=res, rays_per_wave=rays, fwd_ms=dt * 1e3,
-               fwd_rays_per_s=rays / dt,
-               launches={k: v // reps for k, v in ts.launch_counts.items()})
+               fwd_rays_per_s=rays / dt, launches=sweeps,
+               walk_launches=walks)
     params = CONFIGS[name][1]
     if fwdbwd and params is not None:
         def one(seed):

@@ -1,12 +1,17 @@
-"""Batched ray-scene intersection: spheres here, triangles in the sweeps.
+"""Batched ray-scene intersection: spheres here, triangles in the sweeps
+or the BVH walk.
 
 Counterpart of ``fountain_tpu/geometry/intersect.py``. Spheres are tested
 all-pairs against every ray (plain PyTorch, as the JAX package's jnp
 version): the cancellation-free quadratic, z/phi clipping, and hit records
-with reprojected points and error bounds. Triangles go through the sweep
-chosen by the rays' device (``tri_sweep.mt_intersect_kernel``): the CUDA
-kernels on a card, the plain version on the CPU. The triangle sweep is
-capped at the sphere hit's t, so a triangle hit is always the closer one.
+with reprojected points and error bounds. Triangles follow the JAX
+package's rule off the TPU (where its dense table stops at
+``tensor_tri.MAX_DENSE_FACES`` faces): a mesh of at most that many faces
+goes through the sweeps (``tri_sweep.mt_intersect_kernel``), a larger one
+through the BVH walk (``bvh_walk.walk_intersect``); each takes its CUDA
+kernels on a card and its plain version on the CPU. The triangle search
+is capped at the sphere hit's t, so a triangle hit is always the closer
+one.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from fountain_tpu_torch.core import transform as tf
 from fountain_tpu_torch.core.vecmath import (PI, V3, coordinate_system,
                                              cross, gamma, length, normalize,
                                              offset_ray_origin, sqrt0, where3)
+from fountain_tpu_torch.geometry import tensor_tri
 from fountain_tpu_torch.scene.types import Scene, Spheres
 
 # Primitive kind codes in Hit.prim_kind
@@ -214,6 +220,34 @@ def sphere_hit_info(sph: Spheres, idx, o_w, d_w, t, valid) -> Hit:
         inv_uv_scale=inv_uv)
 
 
+def kernel_launches() -> dict:
+    """Launches of every triangle kernel so far, by name: the sweeps'
+    (``tri_sweep.launch_counts``) and the walks'
+    (``bvh_walk.launch_counts``)."""
+    from fountain_tpu_torch.geometry import bvh_walk, tri_sweep
+    return {**tri_sweep.launch_counts, **bvh_walk.launch_counts}
+
+
+def reset_kernel_launches() -> None:
+    """Every triangle kernel's launch count to 0."""
+    from fountain_tpu_torch.geometry import bvh_walk, tri_sweep
+    tri_sweep.reset_launch_counts()
+    bvh_walk.reset_launch_counts()
+
+
+def intersect_faces(scene: Scene, o: V3, d: V3, t_max,
+                    any_hit: bool = False):
+    """(t, face_idx, found) over the scene's faces: the BVH walk above
+    ``tensor_tri.MAX_DENSE_FACES`` faces, the sweeps at or below it."""
+    if scene.triangles.count > tensor_tri.MAX_DENSE_FACES:
+        from fountain_tpu_torch.geometry.bvh_walk import walk_intersect
+        return walk_intersect(scene.bvh_nodes8, scene.bvh_tri_verts, o, d,
+                              t_max, any_hit=any_hit)
+    from fountain_tpu_torch.geometry.tri_sweep import mt_intersect_kernel
+    return mt_intersect_kernel(scene.tri_sweep, o, d, t_max,
+                               any_hit=any_hit)
+
+
 def scene_intersect(scene: Scene, o: V3, d: V3, t_max) -> Hit:
     """Closest hit over the scene; ``t_max < 0`` marks a dead lane."""
     if scene.spheres.count == 0:
@@ -225,9 +259,8 @@ def scene_intersect(scene: Scene, o: V3, d: V3, t_max) -> Hit:
         hit = sphere_hit_info(scene.spheres, idx_s, oa, da, cap, ok_s)
     if scene.triangles.count == 0:
         return hit
-    from fountain_tpu_torch.geometry.tri_sweep import mt_intersect_kernel
     from fountain_tpu_torch.geometry.triangle import triangle_hit_info
-    t_t, idx_t, ok_t = mt_intersect_kernel(scene.tri_sweep, o, d, cap)
+    t_t, idx_t, ok_t = intersect_faces(scene, o, d, cap)
     tri_hit = triangle_hit_info(scene.tri_attr, idx_t, o, d, t_t, ok_t)
     return select_hit(ok_t, tri_hit, hit)
 
@@ -237,9 +270,7 @@ def scene_intersect_any(scene: Scene, o: V3, d: V3, t_max) -> torch.Tensor:
     blocked = None if scene.spheres.count == 0 else intersect_spheres_any(
         scene.spheres, o.stack(), d.stack(), t_max)
     if scene.triangles.count:
-        from fountain_tpu_torch.geometry.tri_sweep import mt_intersect_kernel
-        occ = mt_intersect_kernel(scene.tri_sweep, o, d, t_max,
-                                  any_hit=True)[2]
+        occ = intersect_faces(scene, o, d, t_max, any_hit=True)[2]
         blocked = occ if blocked is None else blocked | occ
     if blocked is None:
         return torch.zeros(o.shape, dtype=torch.bool, device=o.x.device)

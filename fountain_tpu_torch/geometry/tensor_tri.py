@@ -23,6 +23,9 @@ import torch
 
 # relative slack on the barycentric edge tests (units of |det|)
 REL_EPS = 1e-4
+# the dense budget: above this face count a scene goes through the BVH
+# walk instead of the sweeps (geometry.intersect.intersect_faces)
+MAX_DENSE_FACES = 65536
 # pair-block budget: chunk C chosen so N * C * 4 stays under this many floats
 PAIR_BUDGET = 1 << 27
 

@@ -58,10 +58,14 @@ _COMPACT = ((0, 0), (1, 0), (2, 0), (9, 3),
             (4, 1), (5, 1), (0, 2), (1, 2),
             (2, 2), (3, 2), (4, 2), (5, 2))
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "tri_sweep.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# each CUDA source of the port and its flags beyond NVCC_FLAGS: the BVH
+# walk's Woop test needs every product and sum rounded on its own (its
+# Veltkamp split is exact only so), the sweep's FMAs are deliberate
+SOURCES = {"tri_sweep": [], "bvh_walk": ["-fmad=false"]}
 
 # launches per kernel; reset and read by callers that account for a run
 launch_counts = {"tri_sweep_closest": 0, "tri_sweep_any": 0}
@@ -165,33 +169,35 @@ def dense_coefficients(compact: torch.Tensor) -> torch.Tensor:
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
-build_log = ""
+build_logs: dict = {}    # nvcc's output of each build, by source name
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build fountain_tpu_torch/csrc/tri_sweep.cu")
+                           "build the kernels of fountain_tpu_torch/csrc")
     return path
 
 
-def build_library() -> Path:
-    """Compile csrc/tri_sweep.cu (once per source content) into
-    build/kernels/ and return the library's path. Raises on failure."""
-    global build_log
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libtri_sweep_{digest}.so"
+def build_library(name: str = "tri_sweep") -> Path:
+    """Compile csrc/<name>.cu (a key of SOURCES; once per source content
+    and flags) into build/kernels/ and return the library's path. Raises
+    on failure, with nvcc's output."""
+    src = _CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + SOURCES[name]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:12]
+    lib = _BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    build_logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{build_logs[name]}")
     os.replace(tmp, lib)
     return lib
 
@@ -221,15 +227,23 @@ def _check(lib, err: int, name: str) -> None:
                            f"{lib.tri_sweep_error_string(err).decode()}")
 
 
-def _ray_args(table: SweepTable, o: V3, d: V3, t_cap):
-    """Validate a sweep's inputs (flat [N] f32 on one CUDA device) and
-    return the tensors whose pointers the kernel reads."""
+def ray_columns(o: V3, d: V3, t_cap):
+    """The seven ray columns a kernel reads (o, d, t_cap: flat [N] f32,
+    contiguous), checked to lie on one device."""
     dev = t_cap.device
     cols = [c.to(torch.float32).expand(t_cap.shape).contiguous()
             for c in (*o, *d)] + [t_cap.to(torch.float32).contiguous()]
     for c in cols:
         if c.device != dev or c.dim() != 1:
             raise ValueError("ray tensors must be flat [N] on one device")
+    return cols
+
+
+def _ray_args(table: SweepTable, o: V3, d: V3, t_cap):
+    """Validate a sweep's inputs (flat [N] f32 on one CUDA device) and
+    return the tensors whose pointers the kernel reads."""
+    dev = t_cap.device
+    cols = ray_columns(o, d, t_cap)
     if table.coef.device != dev or table.bounds.device != dev:
         raise ValueError("face table and rays must be on the same device")
     if (table.coef.dtype != torch.float32 or not table.coef.is_contiguous()

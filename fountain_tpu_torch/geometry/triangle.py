@@ -1,10 +1,12 @@
 """Triangle hit records: packed per-face attributes and hit refinement.
 
-Counterpart of ``build_tri_attr``, ``woop_intersect_v3`` and
-``triangle_hit_info`` in ``fountain_tpu/geometry/triangle.py``: the sweep
-returns (t, face index); the hit record (barycentric point with error
-bounds, uv, shading frame) comes from one watertight Woop test of that
-face, with edge functions as compensated differences of products.
+Counterpart of ``build_tri_attr``, ``woop_intersect_v3``,
+``intersect_triangles(_any)`` and ``triangle_hit_info`` in
+``fountain_tpu/geometry/triangle.py``: a sweep or the BVH walk returns
+(t, face index); the hit record (barycentric point with error bounds, uv,
+shading frame) comes from one watertight Woop test of that face, with
+edge functions as compensated differences of products. The brute-force
+``intersect_triangles`` is the walk's oracle in the tests.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from fountain_tpu_torch.core.vecmath import (V3, coordinate_system, cross,
                                              dot, gamma, length, normalize,
                                              where3)
 from fountain_tpu_torch.geometry.intersect import (PRIM_NONE, PRIM_TRIANGLE,
-                                                   Hit)
+                                                   Hit, _v3)
 
 _SPLIT = 4097.0  # 2^12 + 1 Veltkamp split constant for f32
 
@@ -105,6 +107,54 @@ def woop_intersect_v3(p0: V3, p1: V3, p2: V3, o: V3, d: V3, t_max):
                      + delta_z * max_e) * inv_det.abs()
     valid = same_sign & nondegen & in_range & (t > delta_t)
     return t, b0, b1, b2, valid
+
+
+def _chunk_tests(tris, o, d, t_lim, base: int, chunk: int):
+    """Woop tests of rays [N] against faces [base, base + chunk): (t,
+    valid), each [N, C], every face tested against its ray's t_lim."""
+    fidx = tris.indices[base:base + chunk].long()
+    pv = tris.positions[fidx]                       # [C, 3, 3]
+    o3, d3 = _v3(o[:, None, :]), _v3(d[:, None, :])
+    t, _, _, _, valid = woop_intersect_v3(
+        *(_v3(pv[None, :, k, :]) for k in range(3)), o3, d3,
+        t_lim[:, None])
+    return t, valid
+
+
+def intersect_triangles(tris, o, d, t_max, chunk: int = 1024):
+    """Closest hit over the whole face table by brute force (the oracle
+    of the BVH walk): (t, face_idx, valid), each [N]; o, d [N, 3].
+
+    Chunked running minimum of the Woop test, each chunk against the best
+    t of the chunks before it; within a chunk the lowest t wins, the
+    lowest face index among equal t.
+    """
+    n, dev = o.shape[0], o.device
+    t_best = torch.where(torch.isfinite(t_max), t_max,
+                         torch.full_like(t_max, float("inf")))
+    i_best = torch.zeros(n, dtype=torch.int32, device=dev)
+    ok_best = torch.zeros(n, dtype=torch.bool, device=dev)
+    for base in range(0, tris.count, chunk):
+        t, valid = _chunk_tests(tris, o, d, t_best, base, chunk)
+        t = torch.where(valid, t, float("inf"))
+        j = torch.argmin(t, dim=-1)
+        t_c = torch.gather(t, 1, j[:, None])[:, 0]
+        ok_c = torch.gather(valid, 1, j[:, None])[:, 0]
+        better = ok_c & (t_c < t_best)
+        t_best = torch.where(better, t_c, t_best)
+        i_best = torch.where(better, (base + j).to(torch.int32), i_best)
+        ok_best = ok_best | better
+    return torch.where(ok_best, t_best, float("inf")), i_best, ok_best
+
+
+def intersect_triangles_any(tris, o, d, t_max, chunk: int = 1024
+                            ) -> torch.Tensor:
+    """Occlusion by brute force: [N] bool, some face hit inside t_max."""
+    blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for base in range(0, tris.count, chunk):
+        blocked = blocked | _chunk_tests(tris, o, d, t_max, base,
+                                         chunk)[1].any(-1)
+    return blocked
 
 
 def build_tri_attr(indices: np.ndarray, positions: np.ndarray,

@@ -443,10 +443,16 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
 
     ``arrays`` maps each leaf's dotted field path to its numpy value, e.g.
     ``"triangles.positions"``, ``"textures.value"``, ``"env_dist.prob"``,
-    ``"tri_attr"``. The sweeps' face table takes the JAX package's dense
-    coefficients (``"tri_features.packed"``) as they are, with block
-    bounds from the leaf-ordered vertices (``"bvh_tri_verts"``). Leaves of
-    the TPU-only tables (``tri_qfeat``, the BVH walk) are ignored.
+    ``"tri_attr"``. The BVH walk's node rows (``"bvh_nodes8"``) and
+    leaf-ordered vertices (``"bvh_tri_verts"``) come across as they are
+    (``"bvh_meta"``, where present, must agree with the rows' packed
+    links and ranges), so a JAX scene above the dense budget, which has
+    no ``tri_features``, keeps its BVH. The sweeps' face table takes the
+    JAX package's dense coefficients (``"tri_features.packed"``) as they
+    are where the scene has them (else it computes them from the
+    vertices), with block bounds from the leaf-ordered vertices. The
+    TPU-only table (``tri_qfeat``) and the walk's unpacked node arrays
+    (``bvh_nodes_min``/``max``) are ignored.
     """
     from fountain_tpu_torch.core.sampling import EnvAlias
     from fountain_tpu_torch.geometry.tensor_tri import TriFeatures
@@ -480,4 +486,13 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
             if "tri_features.packed" in arrays else None
         scene.tri_sweep = pack_sweep_table(arrays["bvh_tri_verts"], dev,
                                            feat=feat)
+        nodes8 = np.array(arrays["bvh_nodes8"], np.float32)
+        if "bvh_meta" in arrays:
+            meta = np.asarray(arrays["bvh_meta"], np.int64)
+            bits = nodes8.view(np.int32)
+            if not (np.array_equal(bits[:, 6], meta[:, 0]) and
+                    np.array_equal(bits[:, 7], meta[:, 1] << 3 | meta[:, 2])):
+                raise ValueError("bvh_meta disagrees with bvh_nodes8")
+        scene.bvh_nodes8 = torch.as_tensor(nodes8, device=dev)
+        scene.bvh_tri_verts = t("bvh_tri_verts")
     return scene

@@ -136,7 +136,11 @@ class Lights:
 class Scene:
     """The full flat scene. ``tri_sweep`` (geometry.tri_sweep.SweepTable)
     carries the triangle sweeps' face table in leaf order; ``tri_attr``
-    the packed per-face hit attributes (geometry.triangle). ``light_tri``
+    the packed per-face hit attributes (geometry.triangle);
+    ``bvh_nodes8`` [M, 8] f32 the BVH walk's node rows (min.xyz, max.xyz,
+    then the miss link and first << 3 | count as int32 bit patterns,
+    geometry.bvh.pack_nodes) and ``bvh_tri_verts`` [F, 3, 3] f32 the
+    faces' vertices in leaf order. ``light_tri``
     [F, 16] is the mesh area lights' face table in SceneBuilder's ORIGINAL
     face order (a light addresses its faces as the range [tri_start,
     tri_start + tri_count), whatever the leaf order): 0 alias
@@ -152,6 +156,8 @@ class Scene:
     world_radius: torch.Tensor   # []
     tri_sweep: Optional[object] = None
     tri_attr: Optional[torch.Tensor] = None
+    bvh_nodes8: Optional[torch.Tensor] = None
+    bvh_tri_verts: Optional[torch.Tensor] = None
     light_tri: Optional[torch.Tensor] = None
     env_images: Optional[object] = None   # shading.mipmap.ImageAtlas
     env_dist: Optional[object] = None     # core.sampling.EnvAlias

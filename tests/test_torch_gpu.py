@@ -511,3 +511,89 @@ def test_two_gloo_ranks_on_one_card_match_render(tmp_path):
     for got in ranks:
         torch.testing.assert_close(got["img"], img, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(got["grad"], grad, rtol=1e-5, atol=1e-7)
+
+
+def _walk_scene(tv, device):
+    """A one-mesh scene of the faces ``tv`` [F, 3, 3] with its BVH tables
+    (``attach_bvh``)."""
+    from fountain_tpu_torch.geometry.bvh import attach_bvh
+    from fountain_tpu_torch.scene.build import SceneBuilder
+    b = SceneBuilder()
+    mat = b.add_matte()
+    b.add_triangle_mesh(tv.reshape(-1, 3),
+                        np.arange(3 * len(tv), dtype=np.int32).reshape(-1, 3),
+                        mat_id=mat)
+    return attach_bvh(b.build(device=device))
+
+
+def _walk_cases():
+    """(label, scene on the card, o, d, t_max) of both walk tests: random
+    faces and rays (with dead lanes and a finite limit) and the rounded
+    cube from outside and from its interior."""
+    from fountain_tpu_torch.bench import build_scene
+    tv, o, d = _random_case(5000, 4096, 21)
+    t_max = torch.full((4096,), float("inf"), device="cuda")
+    t_max[::5] = -1.0
+    t_max[1::5] = 6.0
+    yield "random", _walk_scene(tv, "cuda"), o, d, t_max
+    cube = build_scene(16, "cuda")[0]
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-25, 25, (4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    yield "cube", cube, _on_card(o), _on_card(d), torch.full(
+        (4096,), 3e38, device="cuda")
+    zero = np.zeros((4096, 3), np.float32)
+    yield "cube_interior", cube, _on_card(zero), _on_card(d), torch.full(
+        (4096,), float("inf"), device="cuda")
+
+
+@pytest.mark.gpu
+def test_walk_kernels_match_plain_on_card(monkeypatch):
+    """Both walk kernels equal their plain versions (found and idx equal,
+    t within rtol 1e-6, any hit equal; the interior rays all hit), count
+    their launches, and a CUDA tensor never reaches the plain walk."""
+    _card()
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    for label, scene, o, d, t_max in _walk_cases():
+        args = (scene.bvh_nodes8, scene.bvh_tri_verts, o, d, t_max)
+        tp, ip = bw.closest_hit_plain(*args)
+        occ_p = bw.any_hit_plain(*args)
+        with monkeypatch.context() as mp:
+            def refuse(*a, **k):
+                raise AssertionError("plain walk called on CUDA tensors")
+            mp.setattr(bw, "closest_hit_plain", refuse)
+            mp.setattr(bw, "any_hit_plain", refuse)
+            bw.reset_launch_counts()
+            t, idx, ok = bw.walk_intersect(*args)
+            occ = bw.walk_intersect(*args, any_hit=True)[2]
+            torch.cuda.synchronize()
+        assert bw.launch_counts == {"bvh_walk_closest": 1,
+                                    "bvh_walk_any": 1}, label
+        m = (ip >= 0).cpu()
+        assert m.sum() > 100, label
+        np.testing.assert_array_equal(ok.cpu(), m, err_msg=label)
+        np.testing.assert_array_equal(idx.cpu()[m], ip.cpu()[m],
+                                      err_msg=label)
+        np.testing.assert_allclose(t.cpu()[m], tp.cpu()[m], rtol=1e-6,
+                                   err_msg=label)
+        np.testing.assert_array_equal(occ.cpu(), occ_p.cpu(), err_msg=label)
+        if label == "cube_interior":
+            assert bool(ok.all()) and bool(occ.all())
+
+
+@pytest.mark.gpu
+def test_walk_refuses_malformed_input():
+    _card()
+    from fountain_tpu_torch.geometry import bvh_walk as bw
+    tv, o, d = _random_case(200, 256, 3)
+    scene = _walk_scene(tv, "cuda")
+    cap = torch.full((256,), 3e38, device="cuda")
+    with pytest.raises(ValueError):          # rays on two devices
+        bw.closest_hit_kernel(scene.bvh_nodes8, scene.bvh_tri_verts,
+                              V3(o.x.cpu(), o.y, o.z), d, cap)
+    with pytest.raises(ValueError):          # tables on the CPU
+        bw.any_hit_kernel(scene.bvh_nodes8.cpu(), scene.bvh_tri_verts, o, d,
+                          cap)
+    with pytest.raises(ValueError):          # a node table of 7 columns
+        bw.closest_hit_kernel(scene.bvh_nodes8[:, :7].contiguous(),
+                              scene.bvh_tri_verts, o, d, cap)
