@@ -1,0 +1,8 @@
+"""forward_s.step: host clock around one step's forward pass to the
+loss, synchronized at both ends (a traced unit outside the window)."""
+
+
+def read(record):
+    if record["kind"] != "step":
+        return None
+    return record.get("spans", {}).get("forward")

@@ -1,0 +1,1 @@
+# Frozen copy of fountain_tpu_torch/geometry/__init__.py (commit 6354002): the benchmark's plain reference; edit never.

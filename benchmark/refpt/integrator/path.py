@@ -1,0 +1,425 @@
+# Frozen copy of fountain_tpu_torch/integrator/path.py (commit 6354002): the benchmark's plain reference; edit never.
+"""Wavefront unidirectional path integrator with NEE + MIS (PyTorch).
+
+Counterpart of ``fountain_tpu/integrator/path.py``: the whole wavefront
+of lanes advances together through a bounce loop with an ``active`` mask;
+Russian roulette after 3 bounces; every random number is a counter hash
+of (lane, sample, bounce, slot). Three modes, as in the JAX package:
+- ``"path"`` with NEE: one light per bounce and one shadow ray (the
+  light-sampling branch); its MIS partner is the next bounce's emission
+  gather, weighted by the power heuristic against the continuation ray's
+  BSDF pdf. With ``nee=False`` emission counts only on camera and
+  specular bounces, or on every bounce with ``emit_all_bounces`` (BSDF
+  sampling only);
+- ``"direct"``: one light per bounce with both MIS branches (a shadow
+  ray and a traced BSDF-sampled ray), continuing through specular lobes
+  only;
+- ``"whitted"``: every light, light sampling only, no MIS, continuing
+  through specular lobes only.
+
+Two waves, both Python loops: the fixed wave (``regen_fn=None``) traces
+one path per lane through ``max_depth + 1`` bounces and returns its
+radiance; path regeneration (``regen_fn`` + ``n_iters``) lets a lane
+whose path ends during the first ``n_iters - (max_depth + 1)`` iterations
+start its pixel's next sample, and the remaining iterations drain the
+paths in flight, so every started path completes; per-lane ``depth`` is
+the bounce index.
+
+Gradients: two estimators, as in the JAX package. Detached sampling
+(``detach_sampling=True``, the default): sampled directions, light
+samples, pdfs and the geometric carry (origins, directions, cone width,
+previous pdf, on entry to every iteration) are detached, so gradients
+flow through f * L * cos / pdf into the material, texture and emitter
+tables only. Attached sampling (``detach_sampling=False``): ``detach`` is
+the identity, so the chain u -> wh(alpha) -> wi -> next ray -> next hit
+(sphere intersection, the triangle's re-intersected barycentrics, light
+sample and pdf, Russian roulette's rescale) is differentiated too, which
+gives the gradient of sampled-lobe parameters such as roughness. In both,
+discrete choices and the sweeps' (t, face) carry no gradient, and the
+backward pass never launches a sweep.
+
+Known deviation from fountain, kept from the JAX package: a lane hitting a
+null-BSDF material passes through but consumes a bounce.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from refpt.core import rng
+from refpt.core.sampling import power_heuristic
+from refpt.core.vecmath import (SHADOW_EPSILON, V3, absdot, dot,
+                                             normalize, offset_ray_origin,
+                                             where3, zeros3)
+from refpt.geometry.intersect import (Hit, scene_intersect,
+                                                   scene_intersect_any,
+                                                   spawn_ray)
+from refpt.lights.lights import (emitted_radiance,
+                                              environment_light_radiance,
+                                              environment_radiance,
+                                              infinite_lights, light_pdf,
+                                              sample_light)
+from refpt.scene.types import LIGHT_INFINITE, Scene
+from refpt.shading.bsdf import (bsdf_f_pdf, bsdf_sample,
+                                             gather_shading, has_non_specular,
+                                             local_to_world, world_to_local)
+
+# RNG slot layout within a bounce (dims are bounce*SLOTS + slot)
+_SLOTS = 4
+_SLOT_BSDF = 0      # u_lobe, u1, u2
+_SLOT_LIGHT = 1     # light select, u_light x2
+_SLOT_SCATTER = 2   # direct mode's BSDF branch; whitted's light samples
+_SLOT_RR = 3
+MODES = ("path", "direct", "whitted")
+DIM_CAMERA = 1 << 20  # camera jitter/lens dims live far above bounce dims
+
+
+@dataclass(frozen=True)
+class PathConfig:
+    """The JAX package's PathConfig: ``mode`` is one of ``MODES``;
+    ``nee=False`` turns next-event estimation off in "path" and "direct"
+    modes, and ``emit_all_bounces`` then counts emission at every bounce
+    (BSDF sampling only)."""
+    max_depth: int = 5
+    rr_threshold: float = 1.0
+    nee: bool = True
+    emit_all_bounces: bool = False
+    mode: str = "path"
+
+
+@dataclass
+class RegenResult:
+    """Per-lane radiance summed over all completed samples, the number of
+    completed samples, and (count_rays) the exact useful-ray count."""
+    accum: V3
+    n_done: torch.Tensor
+    n_rays: Optional[torch.Tensor]
+
+
+@dataclass
+class _Lanes:
+    """Per-lane state of the wavefront (all flat [N])."""
+    o: V3
+    d: V3
+    beta: V3
+    radiance: V3
+    active: torch.Tensor
+    specular: torch.Tensor
+    cone_width: torch.Tensor
+    prev_pdf: torch.Tensor
+    lane: torch.Tensor
+    sample: torch.Tensor
+    spread: torch.Tensor
+    n_rays: torch.Tensor
+
+
+def _shadow_target(hit: Hit, ls, wi: V3):
+    """Shadow-ray origin off the surface and its end at the light sample
+    (off the light's surface for area lights)."""
+    o_sh = offset_ray_origin(hit.p, hit.p_err, hit.n, wi)
+    target = where3(ls.is_infinite | ls.is_delta, ls.p_light,
+                    offset_ray_origin(ls.p_light, ls.p_light_err,
+                                      ls.n_light, o_sh - ls.p_light))
+    return o_sh, target
+
+
+def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
+                     active, detach, u_scatter=None) -> V3:
+    """One-light direct illumination. The light-sampling branch traces
+    one shadow ray. Without ``u_scatter`` (path mode) its MIS partner is
+    the continuation ray's emission gather in the bounce loop; with it
+    (direct mode) the BSDF-sampling branch traces its own ray, before the
+    light pdf, which mesh lights take from that ray's hit. Lanes outside
+    ``active`` trace nothing (t_max < 0); the caller drops their light."""
+    wo_l = world_to_local(hit, hit.wo)
+    ls = sample_light(scene, light_idx, hit.p, u_light[0], u_light[1])
+    wi = detach(ls.wi)
+    f, scattering_pdf = bsdf_f_pdf(sp, wo_l, world_to_local(hit, wi))
+    f_cos = f * absdot(wi, hit.ns)
+    light_pdf_val = detach(ls.pdf)
+    possible = (light_pdf_val > 0.0) & ls.radiance.any_positive() \
+        & f_cos.any_positive()
+    o_sh, target = _shadow_target(hit, ls, wi)
+    t_max = torch.where(possible & active, 1.0 - SHADOW_EPSILON, -1.0)
+    occluded = scene_intersect_any(scene, o_sh, target - o_sh, t_max)
+    unocc = possible & ~occluded
+    weight_l = torch.where(ls.is_delta, 1.0,
+                           power_heuristic(1, light_pdf_val, 1,
+                                           detach(scattering_pdf)))
+    ld = where3(unocc, f_cos * ls.radiance
+                * (weight_l / light_pdf_val.clamp_min(1e-12)), 0.0)
+    if u_scatter is None:
+        return ld
+
+    # BSDF-sampling branch (not for delta lights or specular samples)
+    bs = bsdf_sample(sp, wo_l, *u_scatter, detach_wi=detach is _detach)
+    wi_b = detach(local_to_world(hit, bs.wi))
+    f_b = bs.f * absdot(wi_b, hit.ns)
+    bsdf_ok = bs.valid & ~ls.is_delta & f_b.any_positive() \
+        & ~bs.is_specular
+    t_inf = torch.where(bsdf_ok & active, float("inf"), -1.0)
+    hit_b = scene_intersect(scene, spawn_ray(hit, wi_b), wi_b, t_inf)
+    lpdf_b = light_pdf(scene, light_idx, hit.p, wi_b, hit=hit_b)
+    bsdf_ok = bsdf_ok & (lpdf_b > 0.0)
+    weight_b = power_heuristic(1, detach(bs.pdf), 1, detach(lpdf_b))
+    same_light = hit_b.valid & (hit_b.light_id == light_idx)
+    li = where3(same_light, emitted_radiance(scene, hit_b), 0.0)
+    lt = scene.lights
+    if LIGHT_INFINITE in lt.present:
+        is_inf = lt.ltype[light_idx.clamp(0, lt.count - 1)] \
+            == LIGHT_INFINITE
+        li = li + where3(~hit_b.valid & is_inf,
+                         environment_radiance(scene, wi_b), 0.0)
+    return ld + where3(bsdf_ok, f_b * li * (
+        weight_b / detach(bs.pdf).clamp_min(1e-12)), 0.0)
+
+
+def _whitted_direct(scene: Scene, hit: Hit, sp, st: _Lanes, bounce, seed,
+                    active, detach) -> V3:
+    """Direct light from every light, light sampling only (no MIS): one
+    shadow ray per light; light ``i`` draws its sample with seed
+    ``seed + i``."""
+    wo_l = world_to_local(hit, hit.wo)
+    total = zeros3(hit.p.shape, hit.p.x.device)
+    for i in range(scene.lights.count):
+        ui = rng.uniform4(st.lane, st.sample,
+                          bounce * _SLOTS + _SLOT_SCATTER, seed + i)
+        ls = sample_light(scene, torch.full_like(st.lane, i), hit.p, ui[0],
+                          ui[1])
+        wi = detach(ls.wi)
+        f, _ = bsdf_f_pdf(sp, wo_l, world_to_local(hit, wi))
+        f_cos = f * absdot(wi, hit.ns)
+        pdf = detach(ls.pdf)
+        ok = (pdf > 0.0) & f_cos.any_positive() & ls.radiance.any_positive()
+        o_sh, target = _shadow_target(hit, ls, wi)
+        t_sh = torch.where(ok & active, 1.0 - SHADOW_EPSILON, -1.0)
+        occ = scene_intersect_any(scene, o_sh, target - o_sh, t_sh)
+        total = total + where3(ok & ~occ, f_cos * ls.radiance
+                               * (1.0 / pdf.clamp_min(1e-12)), 0.0)
+    return total
+
+
+def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
+            count_rays: bool, detach) -> None:
+    """Advance every lane by one bounce, in place on ``st``. ``bounce`` is
+    the bounce index: an int for the fixed wave, a per-lane int tensor
+    under regeneration."""
+    n_lights = scene.lights.count
+    ro, rd = st.o, st.d
+    t_max = torch.where(st.active, float("inf"), -1.0)
+    hit = scene_intersect(scene, ro, rd, t_max)
+    if count_rays:
+        st.n_rays = st.n_rays + st.active.sum()
+
+    # emitted radiance: full weight on camera/specular bounces (every
+    # bounce with emit_all_bounces); on path-mode NEE bounces the
+    # continuation ray is the MIS BSDF branch of the previous vertex
+    gate = (bounce == 0) | st.specular
+    if cfg.emit_all_bounces:
+        gate = torch.ones_like(st.specular)
+    le_surf = emitted_radiance(scene, hit)
+    if cfg.nee and n_lights > 0 and cfg.mode == "path":
+        lpdf_surf = detach(light_pdf(scene, hit.light_id.clamp_min(0), ro,
+                                     rd, hit=hit))
+        w_surf = torch.where(gate, 1.0, power_heuristic(
+            1, st.prev_pdf, 1, lpdf_surf))
+        le_env = zeros3(ro.shape, ro.x.device)
+        # the other lights' environment terms are zero
+        for k in infinite_lights(scene):
+            pdf_k = detach(light_pdf(scene, torch.full_like(st.lane, k), ro,
+                                     rd))
+            w_k = torch.where(gate, 1.0, power_heuristic(
+                1, st.prev_pdf, 1, pdf_k))
+            le_env = le_env + environment_light_radiance(scene, k, rd) * w_k
+        le_env = where3(hit.valid, 0.0, le_env)
+        st.radiance = st.radiance + where3(
+            st.active, st.beta * (le_surf * w_surf + le_env), 0.0)
+    elif n_lights > 0:
+        le_env = where3(hit.valid, 0.0, environment_radiance(scene, rd))
+        st.radiance = st.radiance + where3(st.active & gate,
+                                           st.beta * (le_surf + le_env), 0.0)
+    else:
+        st.radiance = st.radiance + where3(st.active & gate,
+                                           st.beta * le_surf, 0.0)
+
+    # terminate: escaped or depth cap
+    alive = st.active & hit.valid & (bounce < cfg.max_depth)
+
+    # ray-cone footprint at the hit -> mip filter width in uv space
+    t_hit = torch.where(hit.valid, hit.t, 0.0)
+    width_at_hit = st.cone_width + t_hit * st.spread
+    abs_cos = dot(hit.wo, hit.n).abs()
+    tex_width = width_at_hit * hit.inv_uv_scale / abs_cos.clamp_min(0.05)
+    st.cone_width = torch.where(alive, width_at_hit, st.cone_width)
+
+    sp = gather_shading(scene, hit, tex_width=tex_width)
+    null_bsdf = alive & (sp.mtype < 0)
+
+    if n_lights > 0 and (cfg.nee or cfg.mode == "whitted"):
+        nee_on = alive & has_non_specular(sp) & ~null_bsdf
+    if n_lights > 0 and cfg.mode == "whitted":
+        direct = _whitted_direct(scene, hit, sp, st, bounce, seed, nee_on,
+                                 detach)
+        st.radiance = st.radiance + where3(nee_on, st.beta * direct, 0.0)
+        if count_rays:  # one shadow ray per light and NEE lane
+            st.n_rays = st.n_rays + n_lights * nee_on.sum()
+    elif cfg.nee and n_lights > 0:
+        u_sel = rng.uniform4(st.lane, st.sample,
+                             bounce * _SLOTS + _SLOT_LIGHT, seed)
+        light_idx = (u_sel[0] * n_lights).to(torch.int32).clamp_max(
+            n_lights - 1)
+        u_sc = None
+        if cfg.mode == "direct":
+            u_sc = rng.uniform4(st.lane, st.sample,
+                                bounce * _SLOTS + _SLOT_SCATTER, seed)[:3]
+        direct = _estimate_direct(scene, hit, sp, light_idx,
+                                  (u_sel[1], u_sel[2]), nee_on, detach,
+                                  u_sc)
+        st.radiance = st.radiance + where3(
+            nee_on, st.beta * direct * float(n_lights), 0.0)
+        if count_rays:  # a shadow ray per NEE lane, + the BSDF ray in direct
+            per_lane = 1 if cfg.mode == "path" else 2
+            st.n_rays = st.n_rays + per_lane * nee_on.sum()
+
+    # BSDF sampling for the continuation ray
+    ub = rng.uniform4(st.lane, st.sample, bounce * _SLOTS + _SLOT_BSDF, seed)
+    bs = bsdf_sample(sp, world_to_local(hit, hit.wo), ub[0], ub[1], ub[2],
+                     detach_wi=detach is _detach)
+    wi_w = detach(normalize(local_to_world(hit, bs.wi)))
+    f_ok = bs.valid & bs.f.any_nonzero()
+    contrib = bs.f * (absdot(wi_w, hit.ns)
+                      / detach(bs.pdf).clamp_min(1e-12))
+    new_beta = st.beta * where3(f_ok, contrib, 1.0)
+    new_o = spawn_ray(hit, wi_w)
+
+    # null bsdf: pass through unchanged
+    pass_o = offset_ray_origin(hit.p, hit.p_err, hit.n, rd)
+    st.o = where3(null_bsdf, pass_o, where3(alive, new_o, ro))
+    st.d = where3(null_bsdf, rd, where3(alive, wi_w, rd))
+    st.beta = where3(alive & ~null_bsdf, new_beta, st.beta)
+    st.specular = torch.where(null_bsdf, st.specular,
+                              torch.where(alive, bs.is_specular, st.specular))
+    st.prev_pdf = torch.where(null_bsdf, st.prev_pdf,
+                              torch.where(alive, detach(bs.pdf),
+                                          st.prev_pdf))
+    alive = alive & (null_bsdf | f_ok)
+    if cfg.mode != "path":
+        # direct and whitted continue through specular lobes only
+        alive = alive & (null_bsdf | bs.is_specular)
+
+    # Russian roulette
+    if cfg.rr_threshold > 0.0:
+        u_rr = rng.uniform1(st.lane, st.sample, bounce * _SLOTS + _SLOT_RR,
+                            seed)
+        beta_max = detach(st.beta.max_component())
+        do_rr = alive & (beta_max < cfg.rr_threshold) & (bounce > 3)
+        q = (1.0 - beta_max).clamp_min(0.05)
+        die = do_rr & (u_rr < q)
+        st.beta = where3(do_rr & ~die,
+                         st.beta * (1.0 / (1.0 - q).clamp_min(1e-6)),
+                         st.beta)
+        alive = alive & ~die
+    st.active = alive
+
+
+def _detach(x):
+    """The detached estimator's cut: a tensor or V3 without its graph."""
+    if isinstance(x, V3):
+        return V3(x.x.detach(), x.y.detach(), x.z.detach())
+    return x.detach()
+
+
+def _attached(x):
+    """The attached estimator's ``detach``: the identity."""
+    return x
+
+
+def _detach_geometry(st: _Lanes) -> None:
+    """Detach the geometric carry on entry to an iteration, as the JAX
+    package's loop bodies do under detached sampling (``_geo``: origins,
+    directions, cone width, previous pdf)."""
+    st.o, st.d = _detach(st.o), _detach(st.d)
+    st.cone_width = st.cone_width.detach()
+    st.prev_pdf = st.prev_pdf.detach()
+
+
+def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
+                seed=0, detach_sampling: bool = True,
+                count_rays: bool = False, cone_spread=None,
+                regen_fn: Optional[Callable] = None,
+                n_iters: Optional[int] = None):
+    """Trace one camera path per lane.
+
+    o, d: camera rays (V3 of flat [N]); lane/sample: int tensors [N]
+    feeding the counter RNG; ``cone_spread`` [N] (optional): the rays'
+    ray-cone spread. Without ``regen_fn`` this is the fixed wave: returns
+    the radiance V3, or (radiance, n_rays) with count_rays=True. With
+    ``regen_fn(lane, sample) -> (o, d, spread)`` (the rays of a lane's
+    next sample) it is a regeneration wave of ``n_iters`` iterations and
+    returns a RegenResult. n_rays counts one closest-hit ray per active
+    lane per iteration plus the NEE rays: one shadow ray per NEE lane
+    (path mode), two (direct mode: and the BSDF-sampled ray), one per
+    light (whitted mode).
+    ``detach_sampling`` picks the estimator (module docstring).
+    """
+    if cfg.mode not in MODES:
+        raise ValueError(f"unknown integrator mode {cfg.mode!r}")
+    detach = _detach if detach_sampling else _attached
+    n, dev = o.shape, o.x.device
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    st = _Lanes(
+        o=o, d=d, beta=V3(ones, ones, ones), radiance=zeros3(n, dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        specular=torch.zeros(n, dtype=torch.bool, device=dev),
+        cone_width=torch.zeros(n, dtype=torch.float32, device=dev),
+        prev_pdf=ones,
+        lane=torch.as_tensor(lane, dtype=torch.int32, device=dev).expand(n),
+        sample=torch.as_tensor(sample, dtype=torch.int32,
+                               device=dev).expand(n),
+        spread=torch.zeros(n, dtype=torch.float32, device=dev)
+        if cone_spread is None else cone_spread.expand(n),
+        n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+    if regen_fn is None:
+        for b in range(cfg.max_depth + 1):
+            if detach_sampling:
+                _detach_geometry(st)
+            _bounce(scene, st, b, cfg, seed, count_rays, detach)
+        return (st.radiance, st.n_rays) if count_rays else st.radiance
+
+    k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
+    # refill window: paths started before it have max_depth+1 iterations
+    # left, so they complete inside the wave
+    r_win = k_iters - (cfg.max_depth + 1)
+    depth = torch.zeros(n, dtype=torch.int32, device=dev)
+    accum = zeros3(n, dev)
+    n_done = torch.zeros(n, dtype=torch.int32, device=dev)
+    for it in range(k_iters):
+        if detach_sampling:
+            _detach_geometry(st)
+        was = st.active
+        _bounce(scene, st, depth, cfg, seed, count_rays, detach)
+        finished = was & ~st.active
+        accum = accum + where3(finished, st.radiance, 0.0)
+        n_done = n_done + finished.to(torch.int32)
+        grown = torch.where(st.active, depth + 1, depth)
+        if it >= r_win:
+            depth = grown
+            continue
+        refill = finished
+        new_sample = st.sample + 1
+        o2, d2, sp2 = regen_fn(st.lane, new_sample)
+        st.o = where3(refill, o2, st.o)
+        st.d = where3(refill, d2, st.d)
+        st.radiance = where3(refill, 0.0, st.radiance)
+        st.beta = where3(refill, 1.0, st.beta)
+        st.specular = st.specular & ~refill
+        st.cone_width = torch.where(refill, 0.0, st.cone_width)
+        st.spread = torch.where(refill, sp2, st.spread)
+        st.prev_pdf = torch.where(refill, 1.0, st.prev_pdf)
+        st.sample = torch.where(refill, new_sample, st.sample)
+        depth = torch.where(refill, 0, grown).to(torch.int32)
+        st.active = st.active | refill
+    return RegenResult(accum, n_done, st.n_rays if count_rays else None)
