@@ -54,11 +54,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fountain_tpu_torch.core import rng
 from fountain_tpu_torch.device import resolve_device
-from fountain_tpu_torch.integrator.path import (DIM_CAMERA, PathConfig,
-                                                trace_paths)
-from fountain_tpu_torch.scene.camera import generate_rays
+from fountain_tpu_torch.integrator.path import PathConfig, trace_paths
+from fountain_tpu_torch.integrator.render import RayFn
 
 # the root bench.py's estimate of a CPU path tracer on the same workload
 CPU_BASELINE_RAYS_PER_S = 3.0e6
@@ -103,13 +101,7 @@ def make_ray_fn(cam, res: int, seed):
     """``ray_fn(lane, sample) -> (o, d, spread)``: jittered camera rays of
     pixel lanes (row-major) with zero ray-cone spread, as the root bench
     traces them."""
-    def ray_fn(lane, sample):
-        px = (lane % res).to(torch.float32)
-        py = torch.div(lane, res, rounding_mode="floor").to(torch.float32)
-        u = rng.uniform4(lane, sample, DIM_CAMERA, seed)
-        rays = generate_rays(cam, px + u[0], py + u[1], u[2], u[3])
-        return rays.o, rays.d, torch.zeros_like(px)
-    return ray_fn
+    return RayFn(cam, res, seed, spp_total=None)
 
 
 def wave(scene, cam, res: int, seed, n_iters: int = REGEN_ITERS,

@@ -248,8 +248,26 @@ def intersect_faces(scene: Scene, o: V3, d: V3, t_max,
                                any_hit=any_hit)
 
 
-def scene_intersect(scene: Scene, o: V3, d: V3, t_max) -> Hit:
-    """Closest hit over the scene; ``t_max < 0`` marks a dead lane."""
+def answer_queries(scene: Scene, steps):
+    """Run ``steps``, a generator that yields triangle queries as (o, d,
+    t_max, any_hit) and takes each one's (t, face_idx, found) back,
+    answering every query with ``intersect_faces`` (looked up on this
+    module at call time); returns the generator's value."""
+    try:
+        query = next(steps)
+        while True:
+            o, d, t_max, any_hit = query
+            result = intersect_faces(scene, o, d, t_max, any_hit=any_hit)
+            # the query's rays are the generator's to free
+            query = o = d = t_max = None
+            query = steps.send(result)
+    except StopIteration as stop:
+        return stop.value
+
+
+def scene_intersect_steps(scene: Scene, o: V3, d: V3, t_max):
+    """``scene_intersect`` as a generator of its triangle query (see
+    ``answer_queries``); returns the Hit."""
     if scene.spheres.count == 0:
         hit, cap = miss_hit(o, d), t_max
     else:
@@ -260,18 +278,30 @@ def scene_intersect(scene: Scene, o: V3, d: V3, t_max) -> Hit:
     if scene.triangles.count == 0:
         return hit
     from fountain_tpu_torch.geometry.triangle import triangle_hit_info
-    t_t, idx_t, ok_t = intersect_faces(scene, o, d, cap)
+    t_t, idx_t, ok_t = yield o, d, cap, False
     tri_hit = triangle_hit_info(scene.tri_attr, idx_t, o, d, t_t, ok_t)
     return select_hit(ok_t, tri_hit, hit)
 
 
-def scene_intersect_any(scene: Scene, o: V3, d: V3, t_max) -> torch.Tensor:
-    """Occlusion query: [N] bool."""
+def scene_intersect_any_steps(scene: Scene, o: V3, d: V3, t_max):
+    """``scene_intersect_any`` as a generator of its triangle query;
+    returns the [N] bool."""
     blocked = None if scene.spheres.count == 0 else intersect_spheres_any(
         scene.spheres, o.stack(), d.stack(), t_max)
     if scene.triangles.count:
-        occ = intersect_faces(scene, o, d, t_max, any_hit=True)[2]
+        occ = (yield o, d, t_max, True)[2]
         blocked = occ if blocked is None else blocked | occ
     if blocked is None:
         return torch.zeros(o.shape, dtype=torch.bool, device=o.x.device)
     return blocked
+
+
+def scene_intersect(scene: Scene, o: V3, d: V3, t_max) -> Hit:
+    """Closest hit over the scene; ``t_max < 0`` marks a dead lane."""
+    return answer_queries(scene, scene_intersect_steps(scene, o, d, t_max))
+
+
+def scene_intersect_any(scene: Scene, o: V3, d: V3, t_max) -> torch.Tensor:
+    """Occlusion query: [N] bool."""
+    return answer_queries(scene,
+                          scene_intersect_any_steps(scene, o, d, t_max))

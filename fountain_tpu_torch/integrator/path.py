@@ -42,7 +42,7 @@ null-BSDF material passes through but consumes a bounce.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Callable, Optional
 
 import torch
@@ -52,9 +52,10 @@ from fountain_tpu_torch.core.sampling import power_heuristic
 from fountain_tpu_torch.core.vecmath import (SHADOW_EPSILON, V3, absdot, dot,
                                              normalize, offset_ray_origin,
                                              where3, zeros3)
-from fountain_tpu_torch.geometry.intersect import (Hit, scene_intersect,
-                                                   scene_intersect_any,
-                                                   spawn_ray)
+from fountain_tpu_torch.geometry.intersect import (
+    Hit, answer_queries, scene_intersect_any_steps, scene_intersect_steps,
+    spawn_ray)
+from fountain_tpu_torch.integrator import regen_graph
 from fountain_tpu_torch.lights.lights import (emitted_radiance,
                                               environment_light_radiance,
                                               environment_radiance,
@@ -131,7 +132,8 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
     the continuation ray's emission gather in the bounce loop; with it
     (direct mode) the BSDF-sampling branch traces its own ray, before the
     light pdf, which mesh lights take from that ray's hit. Lanes outside
-    ``active`` trace nothing (t_max < 0); the caller drops their light."""
+    ``active`` trace nothing (t_max < 0); the caller drops their light.
+    A generator of its triangle queries (``intersect.answer_queries``)."""
     wo_l = world_to_local(hit, hit.wo)
     ls = sample_light(scene, light_idx, hit.p, u_light[0], u_light[1])
     wi = detach(ls.wi)
@@ -142,7 +144,8 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
         & f_cos.any_positive()
     o_sh, target = _shadow_target(hit, ls, wi)
     t_max = torch.where(possible & active, 1.0 - SHADOW_EPSILON, -1.0)
-    occluded = scene_intersect_any(scene, o_sh, target - o_sh, t_max)
+    occluded = yield from scene_intersect_any_steps(scene, o_sh,
+                                                    target - o_sh, t_max)
     unocc = possible & ~occluded
     weight_l = torch.where(ls.is_delta, 1.0,
                            power_heuristic(1, light_pdf_val, 1,
@@ -159,7 +162,8 @@ def _estimate_direct(scene: Scene, hit: Hit, sp, light_idx, u_light,
     bsdf_ok = bs.valid & ~ls.is_delta & f_b.any_positive() \
         & ~bs.is_specular
     t_inf = torch.where(bsdf_ok & active, float("inf"), -1.0)
-    hit_b = scene_intersect(scene, spawn_ray(hit, wi_b), wi_b, t_inf)
+    hit_b = yield from scene_intersect_steps(scene, spawn_ray(hit, wi_b),
+                                             wi_b, t_inf)
     lpdf_b = light_pdf(scene, light_idx, hit.p, wi_b, hit=hit_b)
     bsdf_ok = bsdf_ok & (lpdf_b > 0.0)
     weight_b = power_heuristic(1, detach(bs.pdf), 1, detach(lpdf_b))
@@ -179,7 +183,7 @@ def _whitted_direct(scene: Scene, hit: Hit, sp, st: _Lanes, bounce, seed,
                     active, detach) -> V3:
     """Direct light from every light, light sampling only (no MIS): one
     shadow ray per light; light ``i`` draws its sample with seed
-    ``seed + i``."""
+    ``seed + i``. A generator of its triangle queries."""
     wo_l = world_to_local(hit, hit.wo)
     total = zeros3(hit.p.shape, hit.p.x.device)
     for i in range(scene.lights.count):
@@ -194,7 +198,8 @@ def _whitted_direct(scene: Scene, hit: Hit, sp, st: _Lanes, bounce, seed,
         ok = (pdf > 0.0) & f_cos.any_positive() & ls.radiance.any_positive()
         o_sh, target = _shadow_target(hit, ls, wi)
         t_sh = torch.where(ok & active, 1.0 - SHADOW_EPSILON, -1.0)
-        occ = scene_intersect_any(scene, o_sh, target - o_sh, t_sh)
+        occ = yield from scene_intersect_any_steps(scene, o_sh,
+                                                   target - o_sh, t_sh)
         total = total + where3(ok & ~occ, f_cos * ls.radiance
                                * (1.0 / pdf.clamp_min(1e-12)), 0.0)
     return total
@@ -204,11 +209,13 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
             count_rays: bool, detach) -> None:
     """Advance every lane by one bounce, in place on ``st``. ``bounce`` is
     the bounce index: an int for the fixed wave, a per-lane int tensor
-    under regeneration."""
+    under regeneration. A generator of the bounce's triangle queries
+    (``intersect.answer_queries``): the closest hit, then each shadow and
+    BSDF ray of the mode."""
     n_lights = scene.lights.count
     ro, rd = st.o, st.d
     t_max = torch.where(st.active, float("inf"), -1.0)
-    hit = scene_intersect(scene, ro, rd, t_max)
+    hit = yield from scene_intersect_steps(scene, ro, rd, t_max)
     if count_rays:
         st.n_rays = st.n_rays + st.active.sum()
 
@@ -259,8 +266,8 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
     if n_lights > 0 and (cfg.nee or cfg.mode == "whitted"):
         nee_on = alive & has_non_specular(sp) & ~null_bsdf
     if n_lights > 0 and cfg.mode == "whitted":
-        direct = _whitted_direct(scene, hit, sp, st, bounce, seed, nee_on,
-                                 detach)
+        direct = yield from _whitted_direct(scene, hit, sp, st, bounce, seed,
+                                            nee_on, detach)
         st.radiance = st.radiance + where3(nee_on, st.beta * direct, 0.0)
         if count_rays:  # one shadow ray per light and NEE lane
             st.n_rays = st.n_rays + n_lights * nee_on.sum()
@@ -273,9 +280,9 @@ def _bounce(scene: Scene, st: _Lanes, bounce, cfg: PathConfig, seed,
         if cfg.mode == "direct":
             u_sc = rng.uniform4(st.lane, st.sample,
                                 bounce * _SLOTS + _SLOT_SCATTER, seed)[:3]
-        direct = _estimate_direct(scene, hit, sp, light_idx,
-                                  (u_sel[1], u_sel[2]), nee_on, detach,
-                                  u_sc)
+        direct = yield from _estimate_direct(scene, hit, sp, light_idx,
+                                             (u_sel[1], u_sel[2]), nee_on,
+                                             detach, u_sc)
         st.radiance = st.radiance + where3(
             nee_on, st.beta * direct * float(n_lights), 0.0)
         if count_rays:  # a shadow ray per NEE lane, + the BSDF ray in direct
@@ -344,6 +351,130 @@ def _detach_geometry(st: _Lanes) -> None:
     st.prev_pdf = st.prev_pdf.detach()
 
 
+_LANE_FIELDS = tuple(f.name for f in fields(_Lanes))
+
+
+def _flat(parts: dict) -> dict:
+    """Name -> tensor, each V3 as three entries ("o.x", "o.y", "o.z")."""
+    out = {}
+    for k, v in parts.items():
+        if isinstance(v, V3):
+            out.update({f"{k}.x": v.x, f"{k}.y": v.y, f"{k}.z": v.z})
+        else:
+            out[k] = v
+    return out
+
+
+def _unflat(state: dict):
+    """(lanes, depth, accum, n_done) of a regeneration wave's flat state."""
+    parts = {}
+    for k, v in state.items():
+        name, _, c = k.partition(".")
+        if c:
+            parts.setdefault(name, {})[c] = v
+        else:
+            parts[k] = v
+    parts = {k: V3(**v) if isinstance(v, dict) else v
+             for k, v in parts.items()}
+    st = _Lanes(**{k: parts[k] for k in _LANE_FIELDS})
+    return st, parts["depth"], parts["accum"], parts["n_done"]
+
+
+def _iteration(scene: Scene, state: dict, cfg: PathConfig, seed,
+               count_rays: bool, detach):
+    """The bounce of one regeneration iteration from the flat state, as a
+    generator of its triangle queries; returns what ``_end_iteration``
+    takes."""
+    st, depth, accum, n_done = _unflat(state)
+    if detach is _detach:
+        _detach_geometry(st)
+    was = st.active
+    yield from _bounce(scene, st, depth, cfg, seed, count_rays, detach)
+    return st, was, depth, accum, n_done
+
+
+def _end_iteration(middle, regen_fn: Optional[Callable]) -> dict:
+    """The flat state after an iteration: the samples that finished in its
+    bounce summed into ``accum`` and, with ``regen_fn`` (inside the refill
+    window), their lanes started on their next samples."""
+    st, was, depth, accum, n_done = middle
+    st = replace(st)
+    finished = was & ~st.active
+    accum = accum + where3(finished, st.radiance, 0.0)
+    n_done = n_done + finished.to(torch.int32)
+    grown = torch.where(st.active, depth + 1, depth)
+    if regen_fn is None:
+        depth = grown
+    else:
+        refill = finished
+        new_sample = st.sample + 1
+        o2, d2, sp2 = regen_fn(st.lane, new_sample)
+        st.o = where3(refill, o2, st.o)
+        st.d = where3(refill, d2, st.d)
+        st.radiance = where3(refill, 0.0, st.radiance)
+        st.beta = where3(refill, 1.0, st.beta)
+        st.specular = st.specular & ~refill
+        st.cone_width = torch.where(refill, 0.0, st.cone_width)
+        st.spread = torch.where(refill, sp2, st.spread)
+        st.prev_pdf = torch.where(refill, 1.0, st.prev_pdf)
+        st.sample = torch.where(refill, new_sample, st.sample)
+        depth = torch.where(refill, 0, grown).to(torch.int32)
+        st.active = st.active | refill
+    return _flat({**{k: getattr(st, k) for k in _LANE_FIELDS},
+                  "depth": depth, "accum": accum, "n_done": n_done})
+
+
+def graph_counts() -> dict:
+    """Regeneration iterations so far by how they ran:
+    {"captures": ..., "replays": ..., "eager_iterations": ...}
+    (``regen_graph.counts``)."""
+    return regen_graph.counts()
+
+
+def reset_graph_counts() -> None:
+    """Every count of ``graph_counts`` to 0."""
+    regen_graph.reset_counts()
+
+
+def _segments(state: dict, cfg: PathConfig, count_rays: bool, detach,
+              regen_fn, refills: bool):
+    """A key's (Segments, seeds): static buffers shaped as ``state``, and
+    the bounce's and the rays' seed in device scalars. The tails: "drain",
+    and "refill" where the wave has a refill window."""
+    buf = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
+           for k, v in state.items()}
+    seeds = torch.zeros(2, dtype=torch.int64, device=buf["lane"].device)
+    tails = {"drain": lambda m: _end_iteration(m, None)}
+    if refills:
+        regen = regen_fn.with_seed(seeds[1])
+        tails["refill"] = lambda m: _end_iteration(m, regen)
+    return regen_graph.Segments(
+        buf, lambda sc, s: _iteration(sc, s, cfg, seeds[0], count_rays,
+                                      detach), tails), seeds
+
+
+def _regen_segmented(scene: Scene, state: dict, cfg: PathConfig, seed,
+                     count_rays: bool, detach_sampling: bool, regen_fn,
+                     k_iters: int, r_win: int) -> RegenResult:
+    """The regeneration loop through the scene's ``Segments`` for this
+    key (made the first time), from the wave's first ``state``."""
+    key = (regen_graph.signature(scene),
+           regen_graph.signature(regen_fn.with_seed(None)),
+           tuple((k, v.shape, v.dtype) for k, v in state.items()), k_iters,
+           cfg, detach_sampling, count_rays)
+    seg, seeds = regen_graph.cached(scene, key, lambda: _segments(
+        state, cfg, count_rays,
+        _detach if detach_sampling else _attached, regen_fn, r_win > 0))
+    seeds[0].fill_(seed)
+    seeds[1].fill_(regen_fn.seed)
+    seg.load(state)
+    for it in range(k_iters):
+        seg.iterate(scene, "refill" if it < r_win else "drain")
+    _, _, accum, n_done = _unflat(seg.state)
+    return RegenResult(V3(*(c.clone() for c in accum)), n_done.clone(),
+                       seg.state["n_rays"].clone() if count_rays else None)
+
+
 def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
                 seed=0, detach_sampling: bool = True,
                 count_rays: bool = False, cone_spread=None,
@@ -362,6 +493,15 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     (path mode), two (direct mode: and the BSDF-sampled ray), one per
     light (whitted mode).
     ``detach_sampling`` picks the estimator (module docstring).
+
+    A regeneration wave that builds no autograd graph (grad mode off, or
+    no tensor of the scene or the rays requiring grad), whose
+    ``regen_fn`` can take its seed from a device scalar (``with_seed``,
+    as ``render.make_ray_fn``'s), runs its iterations through
+    ``regen_graph.Segments``: on a card, CUDA graphs between the triangle
+    queries, captured in the first wave of a key and replayed after; on
+    the CPU, plain calls of the same segments. Its results are the plain
+    loop's, bit for bit, and the caller's own tensors.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown integrator mode {cfg.mode!r}")
@@ -385,40 +525,29 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
         for b in range(cfg.max_depth + 1):
             if detach_sampling:
                 _detach_geometry(st)
-            _bounce(scene, st, b, cfg, seed, count_rays, detach)
+            answer_queries(scene, _bounce(scene, st, b, cfg, seed,
+                                          count_rays, detach))
         return (st.radiance, st.n_rays) if count_rays else st.radiance
 
     k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
     # refill window: paths started before it have max_depth+1 iterations
     # left, so they complete inside the wave
     r_win = k_iters - (cfg.max_depth + 1)
-    depth = torch.zeros(n, dtype=torch.int32, device=dev)
-    accum = zeros3(n, dev)
-    n_done = torch.zeros(n, dtype=torch.int32, device=dev)
+    state = _flat({**{k: getattr(st, k) for k in _LANE_FIELDS},
+                   "depth": torch.zeros(n, dtype=torch.int32, device=dev),
+                   "accum": zeros3(n, dev),
+                   "n_done": torch.zeros(n, dtype=torch.int32, device=dev)})
+    if hasattr(regen_fn, "with_seed") and not (
+            torch.is_grad_enabled()
+            and regen_graph.requires_grad(scene, o, d, cone_spread)):
+        return _regen_segmented(scene, state, cfg, seed, count_rays,
+                                detach_sampling, regen_fn, k_iters, r_win)
     for it in range(k_iters):
-        if detach_sampling:
-            _detach_geometry(st)
-        was = st.active
-        _bounce(scene, st, depth, cfg, seed, count_rays, detach)
-        finished = was & ~st.active
-        accum = accum + where3(finished, st.radiance, 0.0)
-        n_done = n_done + finished.to(torch.int32)
-        grown = torch.where(st.active, depth + 1, depth)
-        if it >= r_win:
-            depth = grown
-            continue
-        refill = finished
-        new_sample = st.sample + 1
-        o2, d2, sp2 = regen_fn(st.lane, new_sample)
-        st.o = where3(refill, o2, st.o)
-        st.d = where3(refill, d2, st.d)
-        st.radiance = where3(refill, 0.0, st.radiance)
-        st.beta = where3(refill, 1.0, st.beta)
-        st.specular = st.specular & ~refill
-        st.cone_width = torch.where(refill, 0.0, st.cone_width)
-        st.spread = torch.where(refill, sp2, st.spread)
-        st.prev_pdf = torch.where(refill, 1.0, st.prev_pdf)
-        st.sample = torch.where(refill, new_sample, st.sample)
-        depth = torch.where(refill, 0, grown).to(torch.int32)
-        st.active = st.active | refill
-    return RegenResult(accum, n_done, st.n_rays if count_rays else None)
+        state = _end_iteration(
+            answer_queries(scene, _iteration(scene, state, cfg, seed,
+                                             count_rays, detach)),
+            regen_fn if it < r_win else None)
+    regen_graph.count("eager_iterations", k_iters)
+    _, _, accum, n_done = _unflat(state)
+    return RegenResult(accum, n_done,
+                       state["n_rays"] if count_rays else None)

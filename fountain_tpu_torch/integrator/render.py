@@ -13,6 +13,7 @@ estimator of ``trace_paths``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -87,21 +88,41 @@ def render(scene: Scene, camera: PerspectiveCamera, xres: int, yres: int,
     return finalize(film)
 
 
-def make_ray_fn(camera: PerspectiveCamera, xres: int, seed,
-                spp_total: int = 16):
+@dataclass(frozen=True, eq=False)
+class RayFn:
     """``ray_fn(lane, sample) -> (o, d, spread)``: jittered camera rays for
-    pixel lanes (row-major) and their ray-cone spread."""
-    def ray_fn(lane_ids, sample_ids):
-        px = (lane_ids % xres).to(torch.float32)
-        py = torch.div(lane_ids, xres, rounding_mode="floor").to(
+    pixel lanes (row-major) and their ray-cone spread, scaled by
+    1 / sqrt(``spp_total``) (zero without ``spp_total``). ``seed`` is an
+    int or an integer device scalar; ``with_seed`` gives the same rays
+    under another, which lets a CUDA graph of the regeneration wave read
+    it from device memory (``path.trace_paths``)."""
+    camera: PerspectiveCamera
+    xres: int
+    seed: object
+    spp_total: Optional[int] = 16
+
+    def with_seed(self, seed) -> "RayFn":
+        return replace(self, seed=seed)
+
+    def __call__(self, lane_ids, sample_ids):
+        px = (lane_ids % self.xres).to(torch.float32)
+        py = torch.div(lane_ids, self.xres, rounding_mode="floor").to(
             torch.float32)
-        u = rng.uniform4(lane_ids, sample_ids, DIM_CAMERA, seed)
-        rays = generate_rays(camera, px + u[0], py + u[1], u[2], u[3])
+        u = rng.uniform4(lane_ids, sample_ids, DIM_CAMERA, self.seed)
+        rays = generate_rays(self.camera, px + u[0], py + u[1], u[2], u[3])
+        if self.spp_total is None:
+            return rays.o, rays.d, torch.zeros_like(px)
         sx = length(rays.rx_d - rays.d)
         sy = length(rays.ry_d - rays.d)
-        spread = torch.maximum(sx, sy) / max(spp_total, 1) ** 0.5
+        spread = torch.maximum(sx, sy) / max(self.spp_total, 1) ** 0.5
         return rays.o, rays.d, spread
-    return ray_fn
+
+
+def make_ray_fn(camera: PerspectiveCamera, xres: int, seed,
+                spp_total: int = 16) -> RayFn:
+    """``ray_fn(lane, sample) -> (o, d, spread)``: jittered camera rays for
+    pixel lanes (row-major) and their ray-cone spread."""
+    return RayFn(camera, xres, seed, spp_total)
 
 
 def render_regen(scene: Scene, camera: PerspectiveCamera, xres: int,

@@ -1,0 +1,178 @@
+"""The regeneration wave's iteration as segments between its triangle
+queries (``integrator.regen_graph``), on the CPU: the plumbing that the
+card's CUDA graphs run through (static buffers, the queries answered
+between segments, the outputs cloned out, the seeds read from device
+scalars), with plain calls where the card replays graphs. The capture
+itself is in tests/test_torch_graph_gpu.py.
+
+Each wave here is the same call twice: once as it runs without autograd
+(through the segments), once under autograd with a texture value that
+requires grad (the plain loop). The two must agree bit for bit.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from fountain_tpu_torch import bench
+from fountain_tpu_torch.core import rng
+from fountain_tpu_torch.geometry import intersect
+from fountain_tpu_torch.integrator import path, regen_graph
+from fountain_tpu_torch.integrator.path import PathConfig
+from fountain_tpu_torch.integrator.render import render_regen
+
+RES = 8
+ITERS = 7          # depth 3: 3 iterations of refills, 4 draining
+
+# scene, mode, triangle queries an iteration
+CASES = {
+    "config3_path": ("rounded_cube_env", "path", 2),
+    "mis_box_path": ("mis_box", "path", 2),
+    "mis_box_direct": ("mis_box", "direct", 3),
+    "mis_box_whitted": ("mis_box", "whitted", 2),
+    "spheres_only": ("metal_textured_ggx", "path", 0),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _scene(name):
+    return bench.CONFIGS[name][0]("cpu", RES)
+
+
+def _with_grad_leaf(scene):
+    """The scene with a copy of its texture values that requires grad."""
+    tex = scene.textures
+    return dataclasses.replace(scene, textures=dataclasses.replace(
+        tex, value=tex.value.detach().clone().requires_grad_(True)))
+
+
+def _wave(scene, cam, cfg, seed, sample0=0, grad=False):
+    """(r, g, b sums, completed samples, rays) of one wave; under autograd
+    with a texture leaf (the plain loop) with ``grad``."""
+    if grad:
+        with torch.enable_grad():
+            film, n = render_regen(_with_grad_leaf(scene), cam, RES, RES,
+                                   ITERS, cfg, seed=seed, sample0=sample0,
+                                   count_rays=True)
+    else:
+        with torch.no_grad():
+            film, n = render_regen(scene, cam, RES, RES, ITERS, cfg,
+                                   seed=seed, sample0=sample0,
+                                   count_rays=True)
+    return [t.detach() for t in (film.r_sum, film.g_sum, film.b_sum,
+                                 film.weight_sum, n)]
+
+
+def _held(scene):
+    return regen_graph._HELD[id(scene)][1][0]
+
+
+def _assert_equal(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_segments_equal_the_plain_loop(case):
+    """Every mode, and a scene without triangles (one segment, no query):
+    the segmented wave is the plain loop's, bitwise, with the number of
+    queries the mode makes recorded."""
+    name, mode, n_queries = CASES[case]
+    scene, cam = _scene(name)
+    cfg = PathConfig(max_depth=3, mode=mode)
+    path.reset_graph_counts()
+    seg = _wave(scene, cam, cfg, seed=2_000_000_011)
+    assert path.graph_counts() == {"captures": 1, "replays": ITERS - 1,
+                                   "eager_iterations": 1}
+    assert len(_held(scene).outs) == n_queries
+    plain = _wave(scene, cam, cfg, seed=2_000_000_011, grad=True)
+    assert path.graph_counts()["eager_iterations"] == 1 + ITERS
+    _assert_equal(seg, plain)
+    assert seg[3].sum() > 0
+
+
+def test_outputs_are_the_callers_own():
+    """The returned sums and counts are clones: no storage shared with the
+    static buffers, and unchanged by the next wave."""
+    scene, cam = _scene("rounded_cube_env")
+    cfg = PathConfig(max_depth=3)
+    first = _wave(scene, cam, cfg, seed=7)
+    kept = [t.clone() for t in first]
+    held = {t.untyped_storage().data_ptr()
+            for t in _held(scene).state.values()}
+    assert not held & {t.untyped_storage().data_ptr() for t in first}
+    second = _wave(scene, cam, cfg, seed=8, sample0=3)
+    _assert_equal(first, kept)
+    assert not torch.equal(first[0], second[0])
+
+
+def test_queries_see_the_real_rays(monkeypatch):
+    """A wrapper of ``intersect.intersect_faces`` put on the module sees
+    each query of the segmented wave, with the plain loop's rays."""
+    scene, cam = _scene("rounded_cube_env")
+    cfg = PathConfig(max_depth=3)
+    _wave(scene, cam, cfg, seed=1)           # records the key
+    original = intersect.intersect_faces
+    seen = []
+
+    def wrapped(scene, o, d, t_max, any_hit=False):
+        seen.append((any_hit, torch.stack([*o, *d, t_max]).clone()))
+        return original(scene, o, d, t_max, any_hit=any_hit)
+    monkeypatch.setattr(intersect, "intersect_faces", wrapped)
+    path.reset_graph_counts()
+    _wave(scene, cam, cfg, seed=5)
+    assert path.graph_counts()["replays"] == ITERS
+    segmented, seen[:] = list(seen), []
+    _wave(scene, cam, cfg, seed=5, grad=True)
+    assert [k for k, _ in segmented] == [False, True] * ITERS
+    assert [k for k, _ in seen] == [k for k, _ in segmented]
+    for (_, a), (_, b) in zip(segmented, seen):
+        assert torch.equal(a, b)
+
+
+def test_seed_is_read_from_the_device_scalar():
+    """Two waves with other seeds and first samples through one recording:
+    each is its own plain loop's wave, so the seeds come from the device
+    scalars and not from the first wave. A seed in a device scalar hashes
+    as the Python int does."""
+    scene, cam = _scene("mis_box")
+    cfg = PathConfig(max_depth=3)
+    path.reset_graph_counts()
+    waves = [_wave(scene, cam, cfg, seed=s, sample0=s0)
+             for s, s0 in ((3, 0), (2 ** 31 + 5, 4))]
+    assert path.graph_counts() == {"captures": 1, "replays": 2 * ITERS - 1,
+                                   "eager_iterations": 1}
+    for w, (s, s0) in zip(waves, ((3, 0), (2 ** 31 + 5, 4))):
+        _assert_equal(w, _wave(scene, cam, cfg, seed=s, sample0=s0,
+                               grad=True))
+    assert not torch.equal(waves[0][0], waves[1][0])
+    lane = torch.arange(-50, 50, dtype=torch.int32) * 40_000_001
+    dim = lane % 9
+    for seed in (0, 2 ** 31 + 5, -3):
+        _assert_equal(rng.uniform4(lane, 7, dim, seed),
+                      rng.uniform4(lane, 7, dim, torch.tensor(seed)))
+
+
+def test_a_new_key_replaces_the_held_one():
+    """A scene holds one key: another film size records anew and drops
+    the first; the first size records anew when it comes back."""
+    scene, cam = _scene("rounded_cube_env")
+    cfg = PathConfig(max_depth=3)
+    path.reset_graph_counts()
+    _wave(scene, cam, cfg, seed=1)
+    first = _held(scene)
+    with torch.no_grad():
+        render_regen(scene, cam, RES, RES, ITERS + 1, cfg, seed=1)
+    assert _held(scene) is not first
+    _wave(scene, cam, cfg, seed=1)
+    assert path.graph_counts()["captures"] == 3
+    sid = id(scene)
+    del scene, first
+    assert sid not in regen_graph._HELD
