@@ -21,10 +21,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-# Persistent compile cache: a program compiled for longer than 10 s is
-# written here once its compile ends, so a later run on the same machine
-# skips that compile. A compile cut by a time limit never reaches the
-# cache: that is why test_grad's attached combined gradient, whose compile
-# takes longer than the whole tier-1 limit, is marked `slow`.
+# Persistent compile cache: the attached-sampling gradient programs
+# (test_grad combined test) take tens of minutes of XLA-CPU/LLVM compile;
+# cache them so only the first suite run on a machine pays it.
 jax.config.update("jax_compilation_cache_dir", "/tmp/fountain_tpu_jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)

@@ -95,11 +95,13 @@ def test_emitter_grad():
     np.testing.assert_allclose(g, 2.0, rtol=0.02)
 
 
-def _combined_scene(res):
-    """The north-star combined scene (round-4 task 1): a matte mesh, a
-    metal sphere, an emitter sphere and an env image. Returns the scene,
-    the camera and the differentiated params (texture values, emitter
-    radiance scale, env-map TEXELS)."""
+def test_combined_grad_albedo_rough_emitter_env():
+    """The north-star combined gradient (round-4 task 1): differentiate
+    albedo texture + metal roughness texture + emitter radiance + env-map
+    TEXELS simultaneously on a mesh + metal-sphere + env-image scene, and
+    check every component against central finite differences of the same
+    fixed-random-stream estimator."""
+    res = 8
     p = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0],
                   [0, -1, 0], [0, 0, 1], [0, 0, -1]], np.float32) * 0.8
     f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
@@ -123,12 +125,8 @@ def _combined_scene(res):
     cam = make_perspective_camera(
         tf.look_at([0.0, -4.0, 1.0], [0.3, 0.0, 0.0], [0.0, 0.0, 1.0]),
         (res, res), fov_deg=50.0)
-    params = (scene.textures.value, jnp.float32(1.0),
-              scene.env_images.texels)
-    return scene, cam, params
+    cfg = PathConfig(max_depth=4, rr_threshold=0.0, nee=True)
 
-
-def _combined_loss(scene, cam, res, cfg, **render_kw):
     def loss(params):
         tv, emit_scale, texels = params
         s = scene._replace(
@@ -136,21 +134,10 @@ def _combined_loss(scene, cam, res, cfg, **render_kw):
             lights=scene.lights._replace(emit=scene.lights.emit
                                          * emit_scale),
             env_images=scene.env_images._replace(texels=texels))
-        return jnp.mean(render(s, cam, res, res, 4, cfg, **render_kw))
-    return loss
+        return jnp.mean(render(s, cam, res, res, 4, cfg))
 
-
-def test_combined_grad_detached():
-    """The north-star combined gradient: differentiate albedo texture +
-    metal roughness texture + emitter radiance + env-map TEXELS
-    simultaneously on the combined scene, and check every component
-    against central finite differences of the same fixed-random-stream
-    estimator."""
-    res = 8
-    scene, cam, params = _combined_scene(res)
-    cfg = PathConfig(max_depth=4, rr_threshold=0.0, nee=True)
-    loss = _combined_loss(scene, cam, res, cfg)
-
+    params = (scene.textures.value, jnp.float32(1.0),
+              scene.env_images.texels)
     val, grads = jax.value_and_grad(loss)(params)
     g_tv, g_emit, g_texel = grads
     assert np.isfinite(float(val))
@@ -189,31 +176,24 @@ def test_combined_grad_detached():
     assert np.sign(g_r) == np.sign(fd_r) and 0.2 < g_r / fd_r < 2.0, \
         (g_r, fd_r)
 
-
-@pytest.mark.slow
-def test_combined_grad_attached():
-    """The metal roughness gradient of the combined scene in ATTACHED mode
-    (round-5 task 4) against central finite differences.
-
-    Slow: run alone with an empty compilation cache on an 8-core CPU, it
-    was cut at 1,500 s, longer than the whole tier-1 time limit: its
-    first program compiled in 104 s and XLA-CPU was still compiling the
-    next one. Run it with `pytest tests/test_grad.py -m slow`."""
-    res = 8
-    scene, cam, params = _combined_scene(res)
-    tv, emit, texels = params
-    r_row = int(scene.materials.rough_u_tex[1])
-    h = 1e-3
-
-    # detach_sampling=False keeps the u → wh(alpha) → wi chain (pole-free
-    # tr_sample_wh phi map), so jax.grad matches central finite
-    # differences of the SAME fixed-random-stream estimator to first
-    # order — a real allclose on the sampled-lobe shape parameter. Depth 2
-    # (camera → metal → emission gather) exercises the full
-    # reparameterized chain with the smallest attached backward graph.
+    # ATTACHED mode (round-5 task 4): detach_sampling=False keeps the
+    # u → wh(alpha) → wi chain (pole-free tr_sample_wh phi map), so
+    # jax.grad matches central finite differences of the SAME
+    # fixed-random-stream estimator to first order — a real allclose on
+    # the sampled-lobe shape parameter. Depth 2 (camera → metal →
+    # emission gather) exercises the full reparameterized chain while
+    # keeping the attached backward graph's CPU compile time sane.
     cfg_att = PathConfig(max_depth=2, rr_threshold=0.0, nee=True)
-    loss_att = _combined_loss(scene, cam, res, cfg_att,
-                              detach_sampling=False)
+
+    def loss_att(params):
+        tv_, emit_scale, texels_ = params
+        s = scene._replace(
+            textures=scene.textures._replace(value=tv_),
+            lights=scene.lights._replace(emit=scene.lights.emit
+                                         * emit_scale),
+            env_images=scene.env_images._replace(texels=texels_))
+        return jnp.mean(render(s, cam, res, res, 4, cfg_att,
+                               detach_sampling=False))
 
     g_att = jax.grad(loss_att)(params)[0]
     g_r_att = float(g_att[r_row].sum())

@@ -1,9 +1,8 @@
 """Port parity: gradients on tests/test_grad.py's combined scene.
 
-The scene of ``tests/test_grad.py``'s ``_combined_scene`` (a matte
-octahedron, a GGX metal sphere, an emitting enclosure and an image env
-light, BASELINE config 4's material on a sphere), bridged through
-``scene_from_arrays``:
+The scene of ``tests/test_grad.py:98-130`` (a matte octahedron, a GGX
+metal sphere, an emitting enclosure and an image env light, BASELINE
+config 4's material on a sphere), bridged through ``scene_from_arrays``:
 
 - the detached estimator's gradients with respect to the texture values,
   the emitter scale and the env texels against the JAX package's
@@ -11,8 +10,7 @@ light, BASELINE config 4's material on a sphere), bridged through
   takes XLA on the CPU longer than 15 minutes), rel 1e-3;
 - the attached estimator's roughness gradient against the port's own
   central differences (8x8, 4 spp, depth 2, rtol 5e-2:
-  ``tests/test_grad.py::test_combined_grad_attached``'s settings and
-  gate);
+  ``tests/test_grad.py:199-204``'s settings and gate);
 - the JAX package's NaN there (ROADMAP.md section C), on the scene's own
   camera rays: every ray that misses the metal sphere has a NaN
   d hit / d ray in JAX and a finite one in the port. (The JAX package's
