@@ -62,12 +62,13 @@ Phases (any failure exits non-zero; no phase is skipped):
      summed radiance / 3 with respect to the texture values and the atlas
      texels), once in each estimator: a warm-up and 3 timed steps
      (fwd+bwd rays/s, step times, peak memory, each sweep's launches in
-     the forward and the backward pass: 6 and 0), every gradient entry
-     finite; both kernels held to their plain versions and timed at the
-     step's rays of bounces 0 and 3; the card against the CPU at 16x16
-     lanes, depth 3; torch.profiler over one step; and, attached only,
-     central differences of the metal sphere's roughness image at full
-     width (loose gate: same sign, ratio in (0.5, 2));
+     the forward and the backward pass: 6 and 0; the graphed wave
+     recorded once, in the warm-up, and replayed 3 times), every gradient
+     entry finite; both kernels held to their plain versions and timed at
+     the step's rays of bounces 0 and 3; torch.profiler over one step;
+     attached only, central differences of the metal sphere's roughness
+     image at full width (loose gate: same sign, ratio in (0.5, 2)); and
+     the card against the CPU at 16x16 lanes, depth 3;
  11. all five BASELINE configs forward as tools/bench_all.py measures
      them (``bench.measure_all``: a fixed wave of 512x512 lanes, depth 5,
      NEE, RR; 8 timed waves after a warm-up): rays a wave, each held to
@@ -1181,6 +1182,7 @@ def phase_flagship_step():
     its gates. Fails on any."""
     import dataclasses
     from fountain_tpu_torch import bench
+    from fountain_tpu_torch.integrator import path
     from fountain_tpu_torch.integrator.path import PathConfig
     scene, cam = bench.build_flagship(DEVICE)
     res_c, cfg_c = 16, PathConfig(max_depth=3, rr_threshold=1.0, nee=True)
@@ -1193,7 +1195,9 @@ def phase_flagship_step():
             f"fixed wave through {FLAGSHIP}'s 256x256 camera, depth "
             f"{MAX_DEPTH}, NEE, RR; d/d (texture values, atlas texels) of "
             "(r.x + r.y + r.z).sum() / 3")
+        path.reset_graph_counts()
         rec = bench.measure_flagship(scene, cam, RES, STEP_TIMED, detach)
+        rec["graph_counts"] = path.graph_counts()
         for run in ("fwd", "bwd"):   # every kernel's counts in one dict
             rec[f"launches_{run}"] |= rec.pop(f"walk_launches_{run}")
         for key, value in rec.items():
@@ -1206,6 +1210,11 @@ def phase_flagship_step():
                  f"backward {rec['launches_bwd']}; expected {want} and 0")
         if not rec["grad_finite"]:
             fail(f"the {est} flagship gradient is not finite")
+        counts = rec["graph_counts"]
+        if (counts["wave_captures"], counts["wave_replays"]) \
+                != (1, STEP_TIMED):
+            fail(f"flagship step graph counts {counts}: expected one "
+                 f"recording (the warm-up step) and {STEP_TIMED} replays")
 
         seed = STEP_TIMED + 1
         captured = capture_sweep_inputs(
@@ -1214,6 +1223,15 @@ def phase_flagship_step():
         log(f"  kernels at the step's rays (launches {STEP_ITS}: bounces 0 "
             "and 3; gates as in phase 2)")
         rec["kernels"] = phase_kernel_times(scene, captured)
+
+        # the full-width key is replayed here; the small one, which
+        # records anew, comes after
+        log("  torch.profiler over one step")
+        rec["profile"] = profile_step(lambda: bench.flagship_forward(
+            scene, cam, RES, seed, detach)[0])
+
+        if not detach:
+            rec["roughness_fd"] = flagship_roughness_fd(scene, cam, seed)
 
         got = {dev: bench.flagship_step(sc, cm, res_c, 0, detach, cfg_c)
                for dev, (sc, cm) in small.items()}
@@ -1234,13 +1252,6 @@ def phase_flagship_step():
                 or cmp["texels_rel"] > 1e-3 or not cmp["finite"]:
             fail(f"the {est} flagship step differs between card and CPU")
         rec["card_vs_cpu"] = cmp
-
-        log("  torch.profiler over one step")
-        rec["profile"] = profile_step(lambda: bench.flagship_forward(
-            scene, cam, RES, seed, detach)[0])
-
-        if not detach:
-            rec["roughness_fd"] = flagship_roughness_fd(scene, cam, seed)
         out[est] = rec
     return out
 

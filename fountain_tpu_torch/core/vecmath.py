@@ -81,10 +81,15 @@ _CONSTS = {}
 
 def const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A cached 0-dim tensor of ``value`` on ``like``'s device and dtype
-    (a binary op's operand without a fill launch)."""
+    (a binary op's operand without a fill launch). While a CUDA graph is
+    captured, where no copy from the host can run, a value not cached yet
+    is a fill in the graph instead, and stays uncached."""
     key = (value, like.device, like.dtype)
     c = _CONSTS.get(key)
     if c is None:
+        if like.is_cuda and torch.cuda.is_current_stream_capturing():
+            return torch.full((), value, dtype=like.dtype,
+                              device=like.device)
         c = _CONSTS[key] = torch.tensor(value, dtype=like.dtype,
                                         device=like.device)
     return c

@@ -425,8 +425,9 @@ def _end_iteration(middle, regen_fn: Optional[Callable]) -> dict:
 
 
 def graph_counts() -> dict:
-    """Regeneration iterations so far by how they ran:
-    {"captures": ..., "replays": ..., "eager_iterations": ...}
+    """Regeneration iterations and fixed waves so far by how they ran:
+    {"captures": ..., "replays": ..., "eager_iterations": ...,
+    "wave_captures": ..., "wave_replays": ..., "eager_waves": ...}
     (``regen_graph.counts``)."""
     return regen_graph.counts()
 
@@ -475,6 +476,52 @@ def _regen_segmented(scene: Scene, state: dict, cfg: PathConfig, seed,
                        seg.state["n_rays"].clone() if count_rays else None)
 
 
+def _first_lanes(o: V3, d: V3, lane, sample, spread) -> _Lanes:
+    """The lanes on entry to a wave: camera rays ``o``, ``d`` and the
+    lanes' ``lane``, ``sample`` and ray-cone ``spread`` [N]."""
+    n, dev = o.shape, o.x.device
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    return _Lanes(
+        o=o, d=d, beta=V3(ones, ones, ones), radiance=zeros3(n, dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        specular=torch.zeros(n, dtype=torch.bool, device=dev),
+        cone_width=torch.zeros(n, dtype=torch.float32, device=dev),
+        prev_pdf=ones, lane=lane, sample=sample, spread=spread,
+        n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _fixed_wave(scene: Scene, st: _Lanes, cfg: PathConfig, seed,
+                count_rays: bool, detach):
+    """The fixed wave's ``max_depth + 1`` bounces from ``st``, as a
+    generator of their triangle queries; returns (radiance.x, .y, .z,
+    n_rays)."""
+    for b in range(cfg.max_depth + 1):
+        if detach is _detach:
+            _detach_geometry(st)
+        yield from _bounce(scene, st, b, cfg, seed, count_rays, detach)
+    return (*st.radiance, st.n_rays)
+
+
+def _graphed_wave(scene: Scene, o: V3, d: V3, lane, sample, spread,
+                  cfg: PathConfig, seed, count_rays: bool,
+                  detach_sampling: bool) -> tuple:
+    """The fixed wave under autograd, through
+    ``regen_graph.differentiable``: its inputs are the scene's tables
+    that require grad and the first lanes' rays, lanes, samples and
+    spread; the seed is read from a device scalar."""
+    detach = _detach if detach_sampling else _attached
+
+    def body(sc, sd, ox, oy, oz, dx, dy, dz, lane, sample, spread):
+        # a generator function: the first lanes are made inside the first
+        # segment, so a replay makes them anew
+        st = _first_lanes(V3(ox, oy, oz), V3(dx, dy, dz), lane, sample,
+                          spread)
+        return (yield from _fixed_wave(sc, st, cfg, sd, count_rays, detach))
+    return regen_graph.differentiable(
+        scene, seed, (*o, *d, lane, sample, spread), body,
+        (cfg, detach_sampling, count_rays))
+
+
 def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
                 seed=0, detach_sampling: bool = True,
                 count_rays: bool = False, cone_spread=None,
@@ -502,37 +549,43 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     queries, captured in the first wave of a key and replayed after; on
     the CPU, plain calls of the same segments. Its results are the plain
     loop's, bit for bit, and the caller's own tensors.
+
+    A fixed wave that builds an autograd graph (grad mode on, and a
+    tensor of the scene or the rays requiring grad) runs as one autograd
+    function (``regen_graph.differentiable``): on a card its forward is
+    CUDA graphs between the triangle queries, captured with autograd on
+    in the first call of a key, and its backward one more graph,
+    captured in the first backward, both replayed after; on the CPU,
+    each call under autograd as plain calls. Its outputs are clones, and the gradients reach the
+    caller's own tensors as the plain loop's do.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown integrator mode {cfg.mode!r}")
     detach = _detach if detach_sampling else _attached
     n, dev = o.shape, o.x.device
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
-    st = _Lanes(
-        o=o, d=d, beta=V3(ones, ones, ones), radiance=zeros3(n, dev),
-        active=torch.ones(n, dtype=torch.bool, device=dev),
-        specular=torch.zeros(n, dtype=torch.bool, device=dev),
-        cone_width=torch.zeros(n, dtype=torch.float32, device=dev),
-        prev_pdf=ones,
-        lane=torch.as_tensor(lane, dtype=torch.int32, device=dev).expand(n),
-        sample=torch.as_tensor(sample, dtype=torch.int32,
-                               device=dev).expand(n),
-        spread=torch.zeros(n, dtype=torch.float32, device=dev)
-        if cone_spread is None else cone_spread.expand(n),
-        n_rays=torch.zeros((), dtype=torch.int64, device=dev))
+    lane = torch.as_tensor(lane, dtype=torch.int32, device=dev).expand(n)
+    sample = torch.as_tensor(sample, dtype=torch.int32, device=dev).expand(n)
+    spread = torch.zeros(n, dtype=torch.float32, device=dev) \
+        if cone_spread is None else cone_spread.expand(n)
 
     if regen_fn is None:
-        for b in range(cfg.max_depth + 1):
-            if detach_sampling:
-                _detach_geometry(st)
-            answer_queries(scene, _bounce(scene, st, b, cfg, seed,
-                                          count_rays, detach))
-        return (st.radiance, st.n_rays) if count_rays else st.radiance
+        if torch.is_grad_enabled() and regen_graph.requires_grad(
+                scene, o, d, cone_spread):
+            out = _graphed_wave(scene, o, d, lane, sample, spread, cfg, seed,
+                                count_rays, detach_sampling)
+        else:
+            regen_graph.count("eager_waves")
+            out = answer_queries(scene, _fixed_wave(
+                scene, _first_lanes(o, d, lane, sample, spread), cfg, seed,
+                count_rays, detach))
+        radiance = V3(*out[:3])
+        return (radiance, out[3]) if count_rays else radiance
 
     k_iters = n_iters if n_iters is not None else 2 * (cfg.max_depth + 1)
     # refill window: paths started before it have max_depth+1 iterations
     # left, so they complete inside the wave
     r_win = k_iters - (cfg.max_depth + 1)
+    st = _first_lanes(o, d, lane, sample, spread)
     state = _flat({**{k: getattr(st, k) for k in _LANE_FIELDS},
                    "depth": torch.zeros(n, dtype=torch.int32, device=dev),
                    "accum": zeros3(n, dev),

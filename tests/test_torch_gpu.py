@@ -260,12 +260,16 @@ def test_attached_flagship_step_on_card_matches_cpu():
     at 16x16 lanes (the file's camera with a 16x16 film), depth 5, on the
     card and on the CPU: loss rel 1e-4; the summed texture-row and texel
     gradients rel 1e-3 and every entry finite; 6 launches of each sweep,
-    all in the forward pass."""
+    all in the forward pass, in a step of the card's graphed wave after
+    the one that records it (whose one-lane queries, which give the
+    static results their dtypes, launch each sweep too)."""
     _card()
     from fountain_tpu_torch import bench
     got = {}
     for dev in ("cuda", "cpu"):
         scene, cam = bench.build_flagship(dev, film_res=16)
+        if dev == "cuda":
+            bench.flagship_step(scene, cam, 16, 3, detach_sampling=False)
         ts.reset_launch_counts()
         loss, g_tv, g_tx = bench.flagship_step(scene, cam, 16, 3,
                                                detach_sampling=False)

@@ -1,10 +1,13 @@
-"""The regeneration wave as CUDA graphs between its triangle queries, on
-a card (marker ``gpu``; skips without one). This file imports no JAX:
+"""The regeneration wave, and the differentiable fixed wave, as CUDA
+graphs between their triangle queries, on a card (marker ``gpu``; skips
+without one). This file imports no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_graph_gpu.py -q
 
-The graphed wave (no autograd) is held bit for bit to the same call under
-autograd (a texture value that requires grad: the plain loop, op by op).
+The graphed regeneration wave (no autograd) is held bit for bit to the
+same call under autograd (a texture value that requires grad: the plain
+loop, op by op); the graphed fixed wave under autograd to the plain loop
+put in its place.
 """
 import dataclasses
 
@@ -16,6 +19,8 @@ from fountain_tpu_torch.geometry import intersect
 from fountain_tpu_torch.integrator import path
 from fountain_tpu_torch.integrator.path import PathConfig
 from fountain_tpu_torch.integrator.render import render_regen
+
+NO_WAVES = {"wave_captures": 0, "wave_replays": 0, "eager_waves": 0}
 
 
 def _card():
@@ -74,7 +79,8 @@ def test_graphed_wave_equals_the_eager_wave(case):
     graphed = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
                     spp_total=spp)
     assert path.graph_counts() == {"captures": 1, "replays": iters - 1,
-                                   "eager_iterations": 1}
+                                   "eager_iterations": 1,
+                                   **NO_WAVES}
     again = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
                   spp_total=spp)
     eager = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
@@ -97,10 +103,12 @@ def test_second_wave_replays_and_keeps_the_first():
     first = _wave(scene, cam, 64, 24, cfg, 11)
     kept = [t.clone() for t in first]
     assert path.graph_counts() == {"captures": 1, "replays": 23,
-                                   "eager_iterations": 1}
+                                   "eager_iterations": 1,
+                                   **NO_WAVES}
     second = _wave(scene, cam, 64, 24, cfg, 2 ** 31 + 7, sample0=5)
     assert path.graph_counts() == {"captures": 1, "replays": 47,
-                                   "eager_iterations": 1}
+                                   "eager_iterations": 1,
+                                   **NO_WAVES}
     _assert_equal(first, kept)
     _assert_equal(first, _wave(scene, cam, 64, 24, cfg, 11, grad=True))
     _assert_equal(second, _wave(scene, cam, 64, 24, cfg, 2 ** 31 + 7,
@@ -134,3 +142,159 @@ def test_patched_query_sees_every_query_and_its_rays(monkeypatch):
         assert len(graphed[kind]) == len(seen[kind]) == 24
         for k in (0, 8):
             assert torch.equal(graphed[kind][k], seen[kind][k])
+
+
+# The differentiable fixed wave (``regen_graph.differentiable``): a
+# recording call, then replays of its forward and backward graphs. Its
+# reference is the plain loop under autograd; the loss must be the plain
+# loop's to the bit, and each gradient within GRAD_RTOL in relative L2
+# (the texel ``index_add_``'s float atomics sum in another order).
+
+GRAD_RTOL = 1e-5
+FLAGSHIP_RES = 64
+# CUDA runtime calls that put work on the device
+LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpy", "cudaMemcpyAsync",
+    "cudaMemset", "cudaMemsetAsync", "cuMemcpyAsync", "cuMemsetD8Async",
+    "cuMemsetD32Async"))
+
+
+def _plain_wave(scene, o, d, lane, sample, spread, cfg, seed, count_rays,
+                detach_sampling):
+    """The plain loop in place of ``path._graphed_wave``."""
+    detach = path._detach if detach_sampling else path._attached
+    return intersect.answer_queries(scene, path._fixed_wave(
+        scene, path._first_lanes(o, d, lane, sample, spread), cfg, seed,
+        count_rays, detach))
+
+
+def _flagship_loss(scene, cam, seeds, detach=True):
+    """(loss, texture value leaf, texel leaf): fresh leaf copies of both
+    tables in a fresh scene, and the summed loss (r.x + r.y + r.z).sum()
+    / 3 of a fixed wave at each seed, before its backward."""
+    tv = scene.textures.value.detach().clone().requires_grad_(True)
+    tx = scene.env_images.texels.detach().clone().requires_grad_(True)
+    sc = bench.with_params(scene, tv, tx)
+    loss = 0.0
+    for s in seeds:
+        r = bench.wave(sc, cam, FLAGSHIP_RES, s, regen=False,
+                       detach_sampling=detach)
+        loss = loss + (r.x + r.y + r.z).sum() / 3.0
+    return loss, tv, tx
+
+
+def _flagship_step(scene, cam, seeds, detach=True):
+    loss, tv, tx = _flagship_loss(scene, cam, seeds, detach)
+    loss.backward()
+    return loss.detach(), tv.grad, tx.grad
+
+
+def _backward_calls(loss) -> int:
+    """Host calls that put work on the device during ``loss.backward()``,
+    from the profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    return sum(e.name() in LAUNCH_CALLS
+               for e in prof.profiler.kineto_results.events())
+
+
+def _wave_counts():
+    c = path.graph_counts()
+    return c["wave_captures"], c["wave_replays"], c["eager_waves"]
+
+
+def _assert_step_close(got, want):
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.isfinite(g).all()
+        rel = float((g.double() - w.double()).norm()
+                    / w.double().norm().clamp_min(1e-300))
+        assert rel <= GRAD_RTOL, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("detach", [True, False],
+                         ids=["detached", "attached"])
+def test_graphed_step_equals_the_plain_step(monkeypatch, detach):
+    """The flagship's step through the graphed fixed wave: one capture,
+    every later step a replay, each step's loss the plain loop's to the
+    bit and its gradients within GRAD_RTOL, and the backward under 50
+    host calls."""
+    _card()
+    scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
+    seeds = (2_000_000_011, 5, 2 ** 31 + 7) if detach else (3, 2 ** 31 + 9)
+    path.reset_graph_counts()
+    got = [_flagship_step(scene, cam, [s], detach) for s in seeds]
+    assert _wave_counts() == (1, len(seeds) - 1, 0)
+    loss, _, _ = _flagship_loss(scene, cam, [17], detach)
+    calls = _backward_calls(loss)
+    assert _wave_counts() == (1, len(seeds), 0)
+    assert calls < 50, calls
+    monkeypatch.setattr(path, "_graphed_wave", _plain_wave)
+    for g, s in zip(got, seeds):
+        _assert_step_close(g, _flagship_step(scene, cam, [s], detach))
+    assert _wave_counts() == (1, len(seeds), 0)
+
+
+@pytest.mark.gpu
+def test_waves_before_one_backward():
+    """Several graphed waves summed into one loss before its backward
+    (a render of several samples): each backward whose wave a later one
+    replaced replays its own forward again first, and the gradient is the
+    plain loop's within GRAD_RTOL. The first time, the backward graph
+    is captured in the last wave's backward."""
+    _card()
+    scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
+    path.reset_graph_counts()
+    seeds = (21, 22, 23)
+    first = _flagship_step(scene, cam, seeds[:2])    # records; re-runs 1
+    again = _flagship_step(scene, cam, seeds)        # replays; re-runs 2
+    assert _wave_counts() == (1, 1 + 1 + 3 + 2, 0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(path, "_graphed_wave", _plain_wave)
+        _assert_step_close(first, _flagship_step(scene, cam, seeds[:2]))
+        _assert_step_close(again, _flagship_step(scene, cam, seeds))
+
+
+@pytest.mark.gpu
+def test_first_recording_makes_its_own_constants(monkeypatch):
+    """A key recorded before any wave has run op by op (as the first
+    step of a fresh process is): the capture makes the integrator's
+    cached constants itself, and the step is the plain loop's."""
+    from fountain_tpu_torch.core import vecmath
+    from fountain_tpu_torch.integrator import regen_graph
+    _card()
+    monkeypatch.setattr(vecmath, "_CONSTS", {})
+    regen_graph._WAVES.clear()
+    scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
+    path.reset_graph_counts()
+    got = _flagship_step(scene, cam, [31])
+    assert _wave_counts() == (1, 0, 0)
+    monkeypatch.setattr(path, "_graphed_wave", _plain_wave)
+    _assert_step_close(got, _flagship_step(scene, cam, [31]))
+
+@pytest.mark.gpu
+def test_held_wave_and_its_pool_go_with_the_scene():
+    """The graphed wave's key is dropped when its scene goes, and the
+    device memory of its graphs' pool is given back with it."""
+    import gc
+    from fountain_tpu_torch.integrator import regen_graph
+    _card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
+    _flagship_step(scene, cam, [4])
+    assert torch.device("cuda", 0) in regen_graph._WAVES
+    held = torch.cuda.memory_reserved()
+    del scene, cam
+    gc.collect()
+    assert torch.device("cuda", 0) not in regen_graph._WAVES
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() - before < (held - before) / 4

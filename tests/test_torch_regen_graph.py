@@ -23,6 +23,7 @@ from fountain_tpu_torch.integrator.render import render_regen
 
 RES = 8
 ITERS = 7          # depth 3: 3 iterations of refills, 4 draining
+NO_WAVES = {"wave_captures": 0, "wave_replays": 0, "eager_waves": 0}
 
 # scene, mode, triangle queries an iteration
 CASES = {
@@ -90,7 +91,8 @@ def test_segments_equal_the_plain_loop(case):
     path.reset_graph_counts()
     seg = _wave(scene, cam, cfg, seed=2_000_000_011)
     assert path.graph_counts() == {"captures": 1, "replays": ITERS - 1,
-                                   "eager_iterations": 1}
+                                   "eager_iterations": 1,
+                                   **NO_WAVES}
     assert len(_held(scene).outs) == n_queries
     plain = _wave(scene, cam, cfg, seed=2_000_000_011, grad=True)
     assert path.graph_counts()["eager_iterations"] == 1 + ITERS
@@ -148,7 +150,8 @@ def test_seed_is_read_from_the_device_scalar():
     waves = [_wave(scene, cam, cfg, seed=s, sample0=s0)
              for s, s0 in ((3, 0), (2 ** 31 + 5, 4))]
     assert path.graph_counts() == {"captures": 1, "replays": 2 * ITERS - 1,
-                                   "eager_iterations": 1}
+                                   "eager_iterations": 1,
+                                   **NO_WAVES}
     for w, (s, s0) in zip(waves, ((3, 0), (2 ** 31 + 5, 4))):
         _assert_equal(w, _wave(scene, cam, cfg, seed=s, sample0=s0,
                                grad=True))
@@ -176,3 +179,27 @@ def test_a_new_key_replaces_the_held_one():
     sid = id(scene)
     del scene, first
     assert sid not in regen_graph._HELD
+
+
+def test_fresh_camera_that_requires_grad_records_anew():
+    """A wave without autograd whose camera holds a tensor that requires
+    grad: a fresh camera of the same shapes is another key (its tensors
+    are read at their addresses), so it records anew and its wave is its
+    own plain loop's, not the first camera's."""
+    from fountain_tpu_torch.core import transform as tf
+    scene, cam = _scene("rounded_cube_env")
+    cfg = PathConfig(max_depth=3)
+
+    def leaf_camera(to_world):
+        return dataclasses.replace(cam, camera_to_world=tf.Transform(
+            *(t.detach().clone().requires_grad_(True)
+              for t in (to_world.m, to_world.m_inv))))
+    cams = [leaf_camera(cam.camera_to_world),
+            leaf_camera(tf.translate([0.05, -0.03, 0.0])
+                        @ cam.camera_to_world)]
+    path.reset_graph_counts()
+    waves = [_wave(scene, c, cfg, seed=9) for c in cams]
+    assert path.graph_counts()["captures"] == 2
+    for w, c in zip(waves, cams):
+        _assert_equal(w, _wave(scene, c, cfg, seed=9, grad=True))
+    assert not torch.equal(waves[0][0], waves[1][0])
