@@ -248,6 +248,16 @@ def intersect_faces(scene: Scene, o: V3, d: V3, t_max,
                                any_hit=any_hit)
 
 
+def empty_results(n: int, device) -> tuple:
+    """Uninitialised (t, face_idx, found) for ``n`` lanes in the format
+    that ``intersect_faces`` returns for either kind of query, through the
+    sweeps and through the walk: t float32, face_idx int32, found bool,
+    each [n]."""
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.bool, device=device))
+
+
 def answer_queries(scene: Scene, steps):
     """Run ``steps``, a generator that yields triangle queries as (o, d,
     t_max, any_hit) and takes each one's (t, face_idx, found) back,

@@ -437,43 +437,27 @@ def reset_graph_counts() -> None:
     regen_graph.reset_counts()
 
 
-def _segments(state: dict, cfg: PathConfig, count_rays: bool, detach,
-              regen_fn, refills: bool):
-    """A key's (Segments, seeds): static buffers shaped as ``state``, and
-    the bounce's and the rays' seed in device scalars. The tails: "drain",
-    and "refill" where the wave has a refill window."""
-    buf = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
-           for k, v in state.items()}
-    seeds = torch.zeros(2, dtype=torch.int64, device=buf["lane"].device)
-    tails = {"drain": lambda m: _end_iteration(m, None)}
-    if refills:
-        regen = regen_fn.with_seed(seeds[1])
-        tails["refill"] = lambda m: _end_iteration(m, regen)
-    return regen_graph.Segments(
-        buf, lambda sc, s: _iteration(sc, s, cfg, seeds[0], count_rays,
-                                      detach), tails), seeds
-
-
 def _regen_segmented(scene: Scene, state: dict, cfg: PathConfig, seed,
                      count_rays: bool, detach_sampling: bool, regen_fn,
                      k_iters: int, r_win: int) -> RegenResult:
-    """The regeneration loop through the scene's ``Segments`` for this
-    key (made the first time), from the wave's first ``state``."""
-    key = (regen_graph.signature(scene),
-           regen_graph.signature(regen_fn.with_seed(None)),
-           tuple((k, v.shape, v.dtype) for k, v in state.items()), k_iters,
-           cfg, detach_sampling, count_rays)
-    seg, seeds = regen_graph.cached(scene, key, lambda: _segments(
-        state, cfg, count_rays,
-        _detach if detach_sampling else _attached, regen_fn, r_win > 0))
-    seeds[0].fill_(seed)
-    seeds[1].fill_(regen_fn.seed)
-    seg.load(state)
-    for it in range(k_iters):
-        seg.iterate(scene, "refill" if it < r_win else "drain")
-    _, _, accum, n_done = _unflat(seg.state)
+    """The regeneration loop through ``regen_graph.segmented`` from the
+    wave's first ``state``: the bounce's and the rays' seeds read from
+    device scalars, the tail "refill" inside the refill window and
+    "drain" after it."""
+    detach = _detach if detach_sampling else _attached
+    regen = regen_fn.with_seed(None)
+    out = regen_graph.segmented(
+        scene, state, (seed, regen_fn.seed),
+        lambda sc, s, seeds: _iteration(sc, s, cfg, seeds[0], count_rays,
+                                        detach),
+        {"refill": lambda m, seeds: _end_iteration(
+            m, regen.with_seed(seeds[1])),
+         "drain": lambda m, seeds: _end_iteration(m, None)},
+        ["refill" if it < r_win else "drain" for it in range(k_iters)],
+        (regen, cfg, detach_sampling, count_rays))
+    _, _, accum, n_done = _unflat(out)
     return RegenResult(V3(*(c.clone() for c in accum)), n_done.clone(),
-                       seg.state["n_rays"].clone() if count_rays else None)
+                       out["n_rays"].clone() if count_rays else None)
 
 
 def _first_lanes(o: V3, d: V3, lane, sample, spread) -> _Lanes:
@@ -541,23 +525,17 @@ def trace_paths(scene: Scene, o: V3, d: V3, lane, sample, cfg: PathConfig,
     light (whitted mode).
     ``detach_sampling`` picks the estimator (module docstring).
 
-    A regeneration wave that builds no autograd graph (grad mode off, or
-    no tensor of the scene or the rays requiring grad), whose
-    ``regen_fn`` can take its seed from a device scalar (``with_seed``,
-    as ``render.make_ray_fn``'s), runs its iterations through
-    ``regen_graph.Segments``: on a card, CUDA graphs between the triangle
-    queries, captured in the first wave of a key and replayed after; on
-    the CPU, plain calls of the same segments. Its results are the plain
-    loop's, bit for bit, and the caller's own tensors.
-
-    A fixed wave that builds an autograd graph (grad mode on, and a
-    tensor of the scene or the rays requiring grad) runs as one autograd
-    function (``regen_graph.differentiable``): on a card its forward is
-    CUDA graphs between the triangle queries, captured with autograd on
-    in the first call of a key, and its backward one more graph,
-    captured in the first backward, both replayed after; on the CPU,
-    each call under autograd as plain calls. Its outputs are clones, and the gradients reach the
-    caller's own tensors as the plain loop's do.
+    Two waves run through ``regen_graph``'s recordings (its module
+    docstring: on a card CUDA graphs between the triangle queries,
+    captured in the first call of a key and replayed after; plain calls
+    on the CPU): a regeneration wave that builds no autograd graph (grad
+    mode off, or no tensor of the scene or the rays requiring grad) and
+    whose ``regen_fn`` can take its seed from a device scalar
+    (``with_seed``, as ``render.make_ray_fn``'s), through
+    ``regen_graph.segmented``; and a fixed wave that builds one, as one
+    autograd function (``regen_graph.differentiable``). Their results are
+    the plain loop's and the caller's own tensors, and the gradients
+    reach the caller's tensors as the plain loop's do.
     """
     if cfg.mode not in MODES:
         raise ValueError(f"unknown integrator mode {cfg.mode!r}")

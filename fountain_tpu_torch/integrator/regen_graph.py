@@ -1,44 +1,47 @@
-"""The regeneration wave's iteration, and the differentiable fixed wave,
-as segments between their triangle queries: CUDA graphs on a card, plain
-calls elsewhere.
+"""The graphed waves: code between a wave's triangle queries, recorded
+once a key and replayed; CUDA graphs on a card, plain calls elsewhere.
 
-An iteration is a generator (``path._iteration``) that yields each
-triangle query as (o, d, t_max, any_hit), takes the query's (t, face_idx,
-found) back, and returns what the end of the iteration needs; a tail
-(one per variant: inside the refill window, or draining) turns that into
-the next state. ``Segments`` runs it on static buffers: the wave's state
-lives in one tensor a field, and each query's results are copied into
-tensors of their own before the iteration goes on. The queries stay
-ordinary calls of ``geometry.intersect.intersect_faces``, looked up on the
-module at each call, so a wrapper of that function sees every query and
-its real rays.
+A body is a generator (``path._iteration``, ``path._fixed_wave``) that
+yields each triangle query as (o, d, t_max, any_hit), takes the query's
+(t, face_idx, found) back, and returns what follows its last query. Two
+kinds of recording run one:
+- ``Segments``: a regeneration wave's iteration with no autograd graph,
+  on static state buffers, and its tails (one per variant: inside the
+  refill window, or draining) that turn the body's value into the next
+  state;
+- ``GradWave``: the fixed wave under autograd, run as ``_WaveFn``, an
+  autograd function over the scene's tables that require grad and the
+  wave's first lanes; its backward is one more graph.
 
-On a card the first iteration of a key runs op by op on a side stream
-(the warm-up: cached constants and per-stream state), then the code
-between two queries, and each tail, is captured once as a CUDA graph in
-one memory pool; every later iteration replays them, each query between
-two replays. On the CPU every iteration runs as plain calls through the
-same buffers. A scene holds one key's segments at a time (``cached``),
-and they go with the scene.
+The queries stay ordinary calls of ``geometry.intersect.intersect_faces``,
+looked up on the module at each call, so a wrapper of that function sees
+every query of every wave, the first of a key too, and its real rays.
+Each query's results are copied into static tensors of the hit record's
+format (``intersect.empty_results``) that the code after it reads.
 
-The fixed wave under autograd (``differentiable``) runs as ``_WaveFn``,
-an autograd function over the scene's tables that require grad and the
-wave's first lanes. On a card the first call of a key captures the code
-between two queries with autograd on, on the capture stream and with no
-warm-up, so that the autograd graph and its saved tensors live in the
-graphs' pool; each query's static results are made from a one-lane query
-of its kind. Every call, the first too, copies its inputs in, replays,
-and returns clones. Its backward copies the incoming gradients in and
-replays one more graph, the backward from the wave's outputs to its
-inputs (a ``backward`` into the static inputs' ``.grad``, same pool,
-captured in the first backward), and returns clones. A backward whose
-wave a later call has replayed over replays its own forward first. A
-device holds one key's wave (``_WAVES``), and it goes with the first
-tensor of its scene that goes: the key reads the tables that require
-grad by shape and dtype and every other tensor of the scene by address,
-so a step that builds fresh leaves and a fresh scene each time replays.
-On the CPU each call runs under autograd as plain calls, and its
-backward through ``torch.autograd.grad`` of its graph.
+One policy for both kinds:
+- Capture. On a card the first call of a key captures, on the device's
+  capture stream and with nothing run op by op first: the code before
+  each query and after the last as one graph each (and each tail), in
+  one memory pool. The kernels load while capturing; a constant not
+  cached yet is a fill inside the graph (``vecmath.const``). Then that
+  call replays, as every later call does: its inputs copied in, each
+  query answered between two replays. The differentiable wave captures
+  with autograd on, so its autograd graph and saved tensors live in the
+  pool; its first backward captures the backward graph. On the CPU every
+  call runs as plain calls: segments through the same static buffers, the
+  differentiable wave under autograd.
+- Holding. A device holds one recording of each kind (``_HELD``). A call
+  with another key replaces it after a synchronize, and the recording
+  goes when any tensor that its key reads by address is freed.
+- Key (``_key``, the one rule of what a recording bakes in). A tensor
+  copied into the recording at each call (the segments' first state; the
+  wave's tables that require grad and first lanes) by its device, dtype,
+  shape and whether it requires grad; every other tensor by address,
+  shape, strides and dtype (a replay reads it there), and a CPU tensor by
+  its version too (its values are read on the host while capturing);
+  every other leaf by its value. A step that builds fresh leaves and a
+  fresh scene each time therefore replays.
 """
 from __future__ import annotations
 
@@ -54,21 +57,20 @@ from fountain_tpu_torch.geometry import intersect
 
 _COUNTS = {"captures": 0, "replays": 0, "eager_iterations": 0,
            "wave_captures": 0, "wave_replays": 0, "eager_waves": 0}
-_HELD: dict = {}          # id(scene) -> (key, what ``cached`` made)
-_WAVES: dict = {}         # device -> (key, GradWave): the one held
+_HELD: dict = {}          # (device, kind) -> (key, recording): the one held
 _STREAMS: dict = {}       # device index -> the capture stream
 
 
 def counts() -> dict:
-    """Regeneration iterations by how they ran: ``captures`` (keys
-    recorded: on a card captured as graphs), ``replays`` (iterations run
-    from a recording: on a card graph replays, on the CPU plain calls of
-    the recorded segments) and ``eager_iterations`` (op by op: the plain
-    loop, and the warm-up of each capture); fixed waves likewise:
-    ``wave_captures`` (differentiable keys recorded: on a card captured
-    as graphs), ``wave_replays`` (differentiable waves run from a
-    recording, a re-run before a backward included) and ``eager_waves``
-    (op by op: the plain loop without autograd)."""
+    """Regeneration iterations by how they ran: ``captures`` (the first
+    iteration of each key recorded; on a card captured as graphs, then
+    replayed), ``replays`` (later iterations from a recording: on a card
+    graph replays, on the CPU plain calls of the recorded segments) and
+    ``eager_iterations`` (op by op: the plain loop; no capture runs one
+    first); fixed waves likewise: ``wave_captures`` (differentiable keys
+    recorded), ``wave_replays`` (later differentiable waves, a re-run
+    before a backward included) and ``eager_waves`` (op by op: the plain
+    loop without autograd)."""
     return dict(_COUNTS)
 
 
@@ -101,27 +103,26 @@ def _leaves(obj):
         yield obj
 
 
-def signature(obj, grad_inputs: bool = False) -> tuple:
-    """What a capture bakes in of ``obj``: each device tensor's address,
-    shape, strides and dtype (a replay reads its values), each host
-    tensor's version as well (its values are read on the host while
-    capturing), and every other leaf's value. With ``grad_inputs`` a
-    tensor that requires grad is an input of the differentiable wave,
-    copied in at each call: its device, dtype, shape and which of the
-    inputs it is."""
-    out, inputs = [], {}
+def _key(obj, copied) -> tuple:
+    """(the key, the tensors it reads by address) of a recording of
+    ``obj`` whose ``copied`` tensors are copied in at each call: the rule
+    in the module docstring. A copied tensor met under ``obj`` is keyed by
+    its place in ``copied``."""
+    index = {id(t): i for i, t in enumerate(copied)}
+    key = [tuple((t.device, t.dtype, tuple(t.shape), t.requires_grad)
+                 for t in copied)]
+    by_address = {}
     for leaf in _leaves(obj):
-        if isinstance(leaf, torch.Tensor) and leaf.requires_grad \
-                and grad_inputs:
-            out.append((inputs.setdefault(id(leaf), len(inputs)),
-                        leaf.device, leaf.dtype, tuple(leaf.shape)))
-        elif isinstance(leaf, torch.Tensor):
-            out.append((leaf.data_ptr(), leaf.device, leaf.dtype,
+        if not isinstance(leaf, torch.Tensor):
+            key.append(leaf)
+        elif id(leaf) in index:
+            key.append(index[id(leaf)])
+        else:
+            by_address[id(leaf)] = leaf
+            key.append((leaf.data_ptr(), leaf.device, leaf.dtype,
                         tuple(leaf.shape), leaf.stride(),
                         leaf._version if leaf.device.type == "cpu" else 0))
-        else:
-            out.append(leaf)
-    return tuple(out)
+    return tuple(key), list(by_address.values())
 
 
 def requires_grad(*objs) -> bool:
@@ -132,7 +133,7 @@ def requires_grad(*objs) -> bool:
 
 def _grad_tables(obj) -> list:
     """The tensors under ``obj`` that require grad, each once, in the
-    order ``signature`` numbers them."""
+    order of their first appearance."""
     found = {}
     for leaf in _leaves(obj):
         if isinstance(leaf, torch.Tensor) and leaf.requires_grad:
@@ -167,21 +168,30 @@ def _substitute(obj, swap: dict):
     return obj
 
 
-def cached(scene, key, make):
-    """What ``make()`` made for the scene under ``key``, made the first
-    time. A scene holds one key: another key drops the one it held."""
-    sid = id(scene)
-    held = _HELD.get(sid)
-    if held is not None and held[0] == key:
-        return held[1]
-    if sid not in _HELD:
-        weakref.finalize(scene, _HELD.pop, sid, None)
-    elif held is not None and torch.cuda.is_initialized():
-        torch.cuda.synchronize()     # the replays of what it held have ended
-    _HELD[sid] = None                # what it held goes before the new
-    made = make()
-    _HELD[sid] = (key, made)
-    return made
+def _release(slot, rec) -> None:
+    """``_HELD``'s recording of ``slot`` dropped if it is ``rec()``."""
+    held = _HELD.get(slot)
+    if held is not None and held[1] is rec():
+        del _HELD[slot]
+
+
+def _hold(kind: str, device, key, by_address, make):
+    """The device's recording of ``kind`` for ``key``: the one held, or
+    ``make()`` in place of one with another key. The new one goes when
+    any tensor of ``by_address`` goes."""
+    slot = (device, kind)
+    if slot in _HELD:
+        if _HELD[slot][0] == key:
+            return _HELD[slot][1]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the replays of what it held
+        del _HELD[slot]                      # goes before the new is made
+    rec = make()
+    _HELD[slot] = (key, rec)
+    ref = weakref.ref(rec)
+    for t in by_address:
+        weakref.finalize(t, _release, slot, ref)
+    return rec
 
 
 def _on_capture_stream(device, fn):
@@ -206,70 +216,75 @@ def _advance(steps, value):
         return None, stop.value
 
 
-def _empty_results(scene, query) -> tuple:
-    """Uninitialised result tensors for ``query``, their dtypes those of
-    a one-lane query of the same kind (a ray of length 0)."""
-    o, _, _, any_hit = query
-    zero = torch.zeros(1, dtype=o.x.dtype, device=o.x.device)
-    res = intersect.intersect_faces(scene, type(o)(zero, zero, zero),
-                                    type(o)(zero, zero, zero + 1), zero,
-                                    any_hit=any_hit)
-    return tuple(torch.empty((o.x.shape[0], *r.shape[1:]), dtype=r.dtype,
-                             device=r.device) for r in res)
-
-
 class _Recording:
     """A key's triangle queries between recorded code: each query's
-    static results, and on a card each query's tensors and the graph
-    before each query and the one after the last, in one memory pool."""
+    static results, the seeds the body reads from a device tensor, and on
+    a card each query's tensors and the graph before each query and the
+    one after the last, in one memory pool."""
 
-    def __init__(self, device):
+    def __init__(self, device, n_seeds: int):
         self.device = device
         self.recorded = False
+        self.seeds = torch.zeros(n_seeds, dtype=torch.int64, device=device)
         self.outs = []          # per query: its static result tensors
         self.queries, self.graphs = [], []
 
+    def _load(self, statics, values, seeds) -> None:
+        """A call's inputs and seeds into the static ones, through
+        ``.data``: an autograd graph that saved a static input
+        (``GradWave``'s) sees no change of version."""
+        with torch.no_grad():
+            for buf, x in zip(statics, values):
+                buf.data.copy_(x)
+            for buf, s in zip(self.seeds.data, seeds):
+                buf.fill_(s)
+
+    def _results(self, k: int, query) -> tuple:
+        """Query ``k``'s static results, made the first time."""
+        if k == len(self.outs):
+            o = query[0]
+            self.outs.append(intersect.empty_results(o.x.shape[0],
+                                                     o.x.device))
+        return self.outs[k]
+
     def _answer(self, scene, k: int, query) -> tuple:
         """Query ``k`` through ``intersect.intersect_faces``, its results
-        copied into the static ones (made while recording). The copy goes
-        through ``.data``: an autograd graph that saved a static result
-        (``GradWave``'s) sees no change of version."""
+        copied into the static ones (through ``.data``, as ``_load``)."""
         o, d, t_max, any_hit = query
         res = intersect.intersect_faces(scene, o, d, t_max, any_hit=any_hit)
-        if k == len(self.outs) and not self.recorded:
-            self.outs.append(tuple(torch.empty_like(r) for r in res))
-        for buf, r in zip(self.outs[k], res):
+        for buf, r in zip(self._results(k, query), res):
             buf.data.copy_(r)
         return self.outs[k]
 
-    def _graph(self, pool, fn):
+    def _graph(self, fn):
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
             out = fn()
         finally:
             graph.capture_end()
         return graph, out
 
-    def _capture_steps(self, scene, steps, pool):
+    def _record(self, capture) -> None:
+        """The capture policy (module docstring): ``capture()`` on the
+        device's capture stream, in a new pool."""
+        self.pool = torch.cuda.graph_pool_handle()
+        _on_capture_stream(self.device, capture)
+        self.recorded = True
+
+    def _capture_steps(self, scene, steps):
         """The generator ``steps`` as one graph before each query and one
-        after the last, each query reading the static results (made here
-        where no warm-up made them); returns the generator's value."""
+        after the last, each query reading its static results; returns
+        the generator's value."""
         value = None
         while True:
             graph, (query, middle) = self._graph(
-                pool, lambda: _advance(steps, value))
+                lambda: _advance(steps, value))
             self.graphs.append(graph)
             if query is None:
-                break
-            if len(self.outs) == len(self.queries):
-                self.outs.append(_empty_results(scene, query))
-            value = self.outs[len(self.queries)]
+                return middle
+            value = self._results(len(self.queries), query)
             self.queries.append(query)
-        if len(self.queries) != len(self.outs):
-            raise RuntimeError("the capture made another number of "
-                               "triangle queries than its warm-up")
-        return middle
 
     def _replay_steps(self, scene) -> None:
         """The captured graphs in turn, each query answered between two."""
@@ -280,22 +295,20 @@ class _Recording:
 
 
 class Segments(_Recording):
-    """One key's iteration on static buffers.
+    """One key's regeneration iteration on static buffers.
 
-    ``state``: name -> tensor, the wave's state between iterations;
-    ``body(scene, state)``: the iteration's generator of queries;
-    ``tails``: variant -> f(what the body returned) -> the next state
-    (name -> tensor), one for each variant this key's waves run."""
+    ``state``: name -> tensor, the wave's state between iterations (the
+    buffers take its shapes and dtypes); ``body(scene, state, seeds)``:
+    the iteration's generator of queries; ``tails``: variant -> f(what
+    the body returned, seeds) -> the next state (name -> tensor)."""
 
-    def __init__(self, state: dict, body, tails: dict):
-        super().__init__(next(iter(state.values())).device)
-        self.state, self.body, self.tails = state, body, tails
+    def __init__(self, state: dict, n_seeds: int, body, tails: dict):
+        device = next(iter(state.values())).device
+        super().__init__(device, n_seeds)
+        self.state = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                      for k, v in state.items()}
+        self.body, self.tails = body, tails
         self.tail_graphs = {}   # on a card: each tail's graph
-
-    def load(self, state: dict) -> None:
-        """A wave's first state into the static buffers."""
-        for k, v in state.items():
-            self.state[k].copy_(v)
 
     def _store(self, new: dict) -> None:
         for k, v in new.items():
@@ -305,7 +318,7 @@ class Segments(_Recording):
 
     def _plain(self, scene, variant) -> None:
         """One iteration as plain calls through the static buffers."""
-        steps = self.body(scene, self.state)
+        steps = self.body(scene, self.state, self.seeds)
         k, (query, middle) = 0, _advance(steps, None)
         while query is not None:
             query, middle = _advance(steps, self._answer(scene, k, query))
@@ -313,45 +326,49 @@ class Segments(_Recording):
         if k != len(self.outs):
             raise RuntimeError(f"an iteration made {k} triangle queries, "
                                f"its recording {len(self.outs)}")
-        self._store(self.tails[variant](middle))
+        self._store(self.tails[variant](middle, self.seeds))
 
-    def _capture(self, scene) -> None:
-        """The body as one graph before each query and one after the
-        last, and each tail as a graph; one memory pool."""
-        pool = torch.cuda.graph_pool_handle()
-        middle = self._capture_steps(scene, self.body(scene, self.state),
-                                     pool)
-        for v, tail in self.tails.items():
+    def _capture(self, scene, variants) -> None:
+        """The body as graphs between its queries, and a graph of each
+        tail in ``variants``."""
+        middle = self._capture_steps(
+            scene, self.body(scene, self.state, self.seeds))
+        for v in variants:
             self.tail_graphs[v], _ = self._graph(
-                pool, lambda: self._store(tail(middle)))
+                lambda: self._store(self.tails[v](middle, self.seeds)))
 
-    def _record(self, scene, variant) -> None:
-        """The key's first iteration, op by op, then on a card the
-        capture (on the capture stream, which the warm-up readies)."""
-        if self.device.type == "cuda":
-            def warm_then_capture():
+    def run(self, scene, state: dict, seeds, schedule) -> dict:
+        """A wave from its first ``state`` with ``seeds``: one iteration
+        with each tail variant of ``schedule`` in turn; returns the static
+        state after the last."""
+        self._load(self.state.values(), state.values(), seeds)
+        for variant in schedule:
+            count("replays" if self.recorded else "captures")
+            if self.device.type == "cuda":
+                if not self.recorded:
+                    self._record(lambda: self._capture(
+                        scene, dict.fromkeys(schedule)))
+                self._replay_steps(scene)
+                self.tail_graphs[variant].replay()
+            else:
                 self._plain(scene, variant)
-                torch.cuda.synchronize(self.device)
-                self._capture(scene)
-            _on_capture_stream(self.device, warm_then_capture)
-        else:
-            self._plain(scene, variant)
-        self.recorded = True
-        count("eager_iterations")
-        count("captures")
+                self.recorded = True
+        return self.state
 
-    def iterate(self, scene, variant) -> None:
-        """One iteration of the wave with tail ``variant``: recorded the
-        first time, replayed after (on the CPU as plain calls)."""
-        if not self.recorded:
-            self._record(scene, variant)
-            return
-        if self.device.type == "cuda":
-            self._replay_steps(scene)
-            self.tail_graphs[variant].replay()
-        else:
-            self._plain(scene, variant)
-        count("replays")
+
+def segmented(scene, state: dict, seeds: tuple, body, tails: dict,
+              schedule, config) -> dict:
+    """A regeneration wave through the device's ``Segments`` for this key
+    (made the first time): ``state`` copied in, then an iteration of
+    ``body`` and the tail ``schedule[i]`` for each i. ``seeds`` (ints or
+    device scalars) are read by ``body`` and ``tails`` from a device
+    tensor; ``config`` is everything else they bake in. Returns the
+    static state after the last iteration: clone what is kept."""
+    key, by_address = _key((scene, tuple(schedule), config),
+                           list(state.values()))
+    seg = _hold("segments", next(iter(state.values())).device, key,
+                by_address, lambda: Segments(state, len(seeds), body, tails))
+    return seg.run(scene, state, seeds, schedule)
 
 
 def _backward(outs, grads, inputs=(), keep_graph: bool = True):
@@ -391,7 +408,7 @@ class GradWave(_Recording):
         if not inspect.isgeneratorfunction(body):
             raise TypeError("a differentiable wave's body must be a "
                             "generator function")
-        super().__init__(device)
+        super().__init__(device, 1)
         self.n_tables, self.body = n_tables, body
         self.generation = 0     # graph replays so far: whose values it holds
         self.bwd_graph = None
@@ -413,27 +430,16 @@ class GradWave(_Recording):
                 sc, self.body(sc, seed, *leaves[self.n_tables:]))
         return leaves, outs
 
-    def record(self, scene, inputs) -> None:
-        """On a card, the key's first call: on the capture stream, the
-        body on static inputs captured with autograd on between the
-        queries, in one pool where its outputs and the autograd graph with
-        its saved tensors stay. No warm-up runs first: the kernels load
-        while capturing, a constant not cached yet is a fill in the graph
-        (``vecmath.const``), and each query's static results are made
-        from a one-lane query of its kind."""
-        def capture():
-            self.inputs = [torch.empty_like(x).requires_grad_(
-                x.requires_grad) for x in inputs]
-            self.seed = torch.zeros((), dtype=torch.int64,
-                                    device=self.device)
-            sc = self._on(scene, self.inputs)
-            self.pool = torch.cuda.graph_pool_handle()
-            with torch.enable_grad():
-                self.outputs = self._capture_steps(
-                    sc, self.body(sc, self.seed,
-                                  *self.inputs[self.n_tables:]), self.pool)
-        _on_capture_stream(self.device, capture)
-        self.recorded = True
+    def _capture(self, scene, inputs) -> None:
+        """The body on static inputs, captured with autograd on: its
+        outputs and the autograd graph with its saved tensors stay in the
+        pool."""
+        self.inputs = [torch.empty_like(x).requires_grad_(x.requires_grad)
+                       for x in inputs]
+        sc = self._on(scene, self.inputs)
+        with torch.enable_grad():
+            self.outputs = self._capture_steps(sc, self.body(
+                sc, self.seeds[0], *self.inputs[self.n_tables:]))
 
     def _capture_backward(self) -> None:
         """The backward from the static outputs to the static inputs as
@@ -448,19 +454,15 @@ class GradWave(_Recording):
         if not self.want:
             self.bwd_graph, self.grads = False, [None] * len(self.inputs)
             return
-        self.bwd_graph, _ = self._graph(
-            self.pool, lambda: _backward(
-                [self.outputs[i] for i in self.want], self.grad_outs))
+        self.bwd_graph, _ = self._graph(lambda: _backward(
+            [self.outputs[i] for i in self.want], self.grad_outs))
         self.grads = [x.grad for x in self.inputs]
 
     def replay(self, scene, seed, inputs) -> None:
-        """The captured wave on ``inputs`` (copied in through ``.data``,
-        so the saved autograd graph sees no change of version), its
-        queries on ``scene``, whose tensors are at the key's addresses."""
+        """The captured wave on ``inputs``, its queries on ``scene``,
+        whose tensors are at the key's addresses."""
+        self._load(self.inputs, inputs, (seed,))
         with torch.no_grad():
-            for buf, x in zip(self.inputs, inputs):
-                buf.data.copy_(x)
-            self.seed.data.fill_(seed)
             self._replay_steps(scene)
         self.generation += 1
 
@@ -498,7 +500,7 @@ class _WaveFn(torch.autograd.Function):
         count("wave_replays" if wave.recorded else "wave_captures")
         if wave.device.type == "cuda":
             if not wave.recorded:
-                wave.record(scene, inputs)
+                wave._record(lambda: wave._capture(scene, inputs))
             wave.replay(scene, seed, inputs)
             ctx.scene, ctx.generation = scene, wave.generation
             ctx.save_for_backward(*inputs)
@@ -523,39 +525,15 @@ class _WaveFn(torch.autograd.Function):
         return (None, None, None, *got)
 
 
-def _spec(x: torch.Tensor) -> tuple:
-    return x.device, x.dtype, tuple(x.shape), x.requires_grad
-
-
-def _release(device, wave) -> None:
-    """``_WAVES``' wave of ``device`` dropped if it is ``wave()``."""
-    held = _WAVES.get(device)
-    if held is not None and held[1] is wave():
-        del _WAVES[device]
-
-
-def differentiable(scene, seed, args: tuple, body, key) -> tuple:
+def differentiable(scene, seed, args: tuple, body, config) -> tuple:
     """``body(scene, seed, *args)`` (a generator of triangle queries that
     returns a tuple of tensors; ``args`` and each query's results are
-    per lane, lanes first) as ``_WaveFn``: differentiable in the scene's
-    tables that require grad and in ``args``. ``key``: what else
-    the body bakes in (its configuration). The device holds one key's
-    ``GradWave``: another key drops the one it held, and so does the end
-    of any tensor of the scene that does not require grad (whose address
-    the graphs read)."""
+    per lane, lanes first) as ``_WaveFn`` over the device's ``GradWave``
+    for this key: differentiable in the scene's tables that require grad
+    and in ``args``, which are copied in at each call. ``config``: what
+    else the body bakes in."""
     tables = _grad_tables(scene)
-    dev = args[0].device
-    key = (signature(scene, grad_inputs=True),
-           tuple(_spec(x) for x in args), key)
-    held = _WAVES.get(dev)
-    if held is None or held[0] != key:
-        if held is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)  # the replays of what it held ended
-        _WAVES[dev] = None               # what it held goes before the new
-        wave = GradWave(dev, len(tables), body)
-        _WAVES[dev] = held = (key, wave)
-        ref = weakref.ref(wave)
-        for t in {id(t): t for t in _leaves(scene) if isinstance(
-                t, torch.Tensor) and not t.requires_grad}.values():
-            weakref.finalize(t, _release, dev, ref)
-    return _WaveFn.apply(held[1], scene, seed, *tables, *args)
+    key, by_address = _key((scene, config), (*tables, *args))
+    wave = _hold("wave", args[0].device, key, by_address,
+                 lambda: GradWave(args[0].device, len(tables), body))
+    return _WaveFn.apply(wave, scene, seed, *tables, *args)

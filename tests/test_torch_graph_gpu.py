@@ -16,7 +16,7 @@ import torch
 
 from fountain_tpu_torch import bench
 from fountain_tpu_torch.geometry import intersect
-from fountain_tpu_torch.integrator import path
+from fountain_tpu_torch.integrator import path, regen_graph
 from fountain_tpu_torch.integrator.path import PathConfig
 from fountain_tpu_torch.integrator.render import render_regen
 
@@ -79,13 +79,13 @@ def test_graphed_wave_equals_the_eager_wave(case):
     graphed = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
                     spp_total=spp)
     assert path.graph_counts() == {"captures": 1, "replays": iters - 1,
-                                   "eager_iterations": 1,
+                                   "eager_iterations": 0,
                                    **NO_WAVES}
     again = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
                   spp_total=spp)
     eager = _wave(scene, cam, res, iters, cfg, 2_000_000_011,
                   spp_total=spp, grad=True)
-    assert path.graph_counts()["eager_iterations"] == 1 + iters
+    assert path.graph_counts()["eager_iterations"] == iters
     _assert_equal(graphed, eager)
     _assert_equal(again, eager)
     assert graphed[3].sum() > 0
@@ -103,11 +103,11 @@ def test_second_wave_replays_and_keeps_the_first():
     first = _wave(scene, cam, 64, 24, cfg, 11)
     kept = [t.clone() for t in first]
     assert path.graph_counts() == {"captures": 1, "replays": 23,
-                                   "eager_iterations": 1,
+                                   "eager_iterations": 0,
                                    **NO_WAVES}
     second = _wave(scene, cam, 64, 24, cfg, 2 ** 31 + 7, sample0=5)
     assert path.graph_counts() == {"captures": 1, "replays": 47,
-                                   "eager_iterations": 1,
+                                   "eager_iterations": 0,
                                    **NO_WAVES}
     _assert_equal(first, kept)
     _assert_equal(first, _wave(scene, cam, 64, 24, cfg, 11, grad=True))
@@ -116,31 +116,49 @@ def test_second_wave_replays_and_keeps_the_first():
 
 
 @pytest.mark.gpu
-def test_patched_query_sees_every_query_and_its_rays(monkeypatch):
-    """A wrapper put on ``intersect.intersect_faces`` sees 24 closest and
-    24 any-hit queries in a 24-iteration config-3 wave, and the rays of
-    launches 0 and 8 of each kind equal the eager wave's."""
+@pytest.mark.parametrize("case", ["regen_replay", "regen_first",
+                                  "wave_first"])
+def test_patched_query_sees_every_query_and_its_rays(monkeypatch, case):
+    """A wrapper put on ``intersect.intersect_faces`` sees exactly the
+    plain loop's queries, 24 closest and 24 any-hit in a 24-iteration
+    config-3 wave (6 and 6 in a fixed wave), and the rays of launches 0
+    and 8 (0 and 3) of each kind equal the plain loop's: in a replayed
+    regeneration wave, and in the first wave of a new key of either kind,
+    whose recording makes no query of its own."""
     _card()
     scene, cam = _config3(64)
     cfg = PathConfig(max_depth=5)
-    _wave(scene, cam, 64, 24, cfg, 3)             # the key's capture
+    if case == "regen_replay":
+        _wave(scene, cam, 64, 24, cfg, 3)         # the key's capture
     original = intersect.intersect_faces
+    its = (0, 3) if case == "wave_first" else (0, 8)
     seen = {}
 
     def wrapped(scene, o, d, t_max, any_hit=False):
         calls = seen.setdefault(any_hit, [])
         calls.append(torch.stack([*o, *d, t_max]).clone()
-                     if len(calls) in (0, 8) else None)
+                     if len(calls) in its else None)
         return original(scene, o, d, t_max, any_hit=any_hit)
     monkeypatch.setattr(intersect, "intersect_faces", wrapped)
     path.reset_graph_counts()
-    _wave(scene, cam, 64, 24, cfg, 5)
-    assert path.graph_counts()["replays"] == 24
-    graphed, seen = seen, {}
-    _wave(scene, cam, 64, 24, cfg, 5, grad=True)
+    if case == "wave_first":
+        _flagship_step(scene, cam, [5])
+        assert _wave_counts() == (1, 0, 0)
+        graphed, seen = seen, {}
+        monkeypatch.setattr(path, "_graphed_wave", _plain_wave)
+        _flagship_step(scene, cam, [5])
+        n = cfg.max_depth + 1
+    else:
+        _wave(scene, cam, 64, 24, cfg, 5)
+        first = case == "regen_first"
+        assert (path.graph_counts()["captures"],
+                path.graph_counts()["replays"]) == (first, 24 - first)
+        graphed, seen = seen, {}
+        _wave(scene, cam, 64, 24, cfg, 5, grad=True)
+        n = 24
     for kind in (False, True):
-        assert len(graphed[kind]) == len(seen[kind]) == 24
-        for k in (0, 8):
+        assert len(graphed[kind]) == len(seen[kind]) == n
+        for k in its:
             assert torch.equal(graphed[kind][k], seen[kind][k])
 
 
@@ -262,17 +280,27 @@ def test_waves_before_one_backward():
 
 
 @pytest.mark.gpu
-def test_first_recording_makes_its_own_constants(monkeypatch):
+@pytest.mark.parametrize("kind", ["wave", "segments"])
+def test_first_recording_makes_its_own_constants(monkeypatch, kind):
     """A key recorded before any wave has run op by op (as the first
-    step of a fresh process is): the capture makes the integrator's
-    cached constants itself, and the step is the plain loop's."""
+    wave of a fresh process is): the capture makes the integrator's
+    cached constants itself, and the flagship's step, or its regeneration
+    wave, is the plain loop's."""
     from fountain_tpu_torch.core import vecmath
-    from fountain_tpu_torch.integrator import regen_graph
     _card()
     monkeypatch.setattr(vecmath, "_CONSTS", {})
-    regen_graph._WAVES.clear()
+    torch.cuda.synchronize()
+    regen_graph._HELD.clear()
     scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
     path.reset_graph_counts()
+    if kind == "segments":
+        cfg = PathConfig(max_depth=8)
+        got = _wave(scene, cam, FLAGSHIP_RES, 25, cfg, 31, spp_total=64)
+        assert path.graph_counts() == {"captures": 1, "replays": 24,
+                                       "eager_iterations": 0, **NO_WAVES}
+        _assert_equal(got, _wave(scene, cam, FLAGSHIP_RES, 25, cfg, 31,
+                                 spp_total=64, grad=True))
+        return
     got = _flagship_step(scene, cam, [31])
     assert _wave_counts() == (1, 0, 0)
     monkeypatch.setattr(path, "_graphed_wave", _plain_wave)
@@ -283,18 +311,17 @@ def test_held_wave_and_its_pool_go_with_the_scene():
     """The graphed wave's key is dropped when its scene goes, and the
     device memory of its graphs' pool is given back with it."""
     import gc
-    from fountain_tpu_torch.integrator import regen_graph
     _card()
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
     scene, cam = bench.build_flagship("cuda", film_res=FLAGSHIP_RES)
     _flagship_step(scene, cam, [4])
-    assert torch.device("cuda", 0) in regen_graph._WAVES
+    assert (torch.device("cuda", 0), "wave") in regen_graph._HELD
     held = torch.cuda.memory_reserved()
     del scene, cam
     gc.collect()
-    assert torch.device("cuda", 0) not in regen_graph._WAVES
+    assert (torch.device("cuda", 0), "wave") not in regen_graph._HELD
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() - before < (held - before) / 4

@@ -10,6 +10,7 @@ Each wave here is the same call twice: once as it runs without autograd
 requires grad (the plain loop). The two must agree bit for bit.
 """
 import dataclasses
+import gc
 
 import pytest
 import torch
@@ -71,8 +72,9 @@ def _wave(scene, cam, cfg, seed, sample0=0, grad=False):
                                  film.weight_sum, n)]
 
 
-def _held(scene):
-    return regen_graph._HELD[id(scene)][1][0]
+def _held():
+    """The CPU's held regeneration recording."""
+    return regen_graph._HELD[(torch.device("cpu"), "segments")][1]
 
 
 def _assert_equal(a, b):
@@ -91,11 +93,11 @@ def test_segments_equal_the_plain_loop(case):
     path.reset_graph_counts()
     seg = _wave(scene, cam, cfg, seed=2_000_000_011)
     assert path.graph_counts() == {"captures": 1, "replays": ITERS - 1,
-                                   "eager_iterations": 1,
+                                   "eager_iterations": 0,
                                    **NO_WAVES}
-    assert len(_held(scene).outs) == n_queries
+    assert len(_held().outs) == n_queries
     plain = _wave(scene, cam, cfg, seed=2_000_000_011, grad=True)
-    assert path.graph_counts()["eager_iterations"] == 1 + ITERS
+    assert path.graph_counts()["eager_iterations"] == ITERS
     _assert_equal(seg, plain)
     assert seg[3].sum() > 0
 
@@ -108,7 +110,7 @@ def test_outputs_are_the_callers_own():
     first = _wave(scene, cam, cfg, seed=7)
     kept = [t.clone() for t in first]
     held = {t.untyped_storage().data_ptr()
-            for t in _held(scene).state.values()}
+            for t in _held().state.values()}
     assert not held & {t.untyped_storage().data_ptr() for t in first}
     second = _wave(scene, cam, cfg, seed=8, sample0=3)
     _assert_equal(first, kept)
@@ -150,7 +152,7 @@ def test_seed_is_read_from_the_device_scalar():
     waves = [_wave(scene, cam, cfg, seed=s, sample0=s0)
              for s, s0 in ((3, 0), (2 ** 31 + 5, 4))]
     assert path.graph_counts() == {"captures": 1, "replays": 2 * ITERS - 1,
-                                   "eager_iterations": 1,
+                                   "eager_iterations": 0,
                                    **NO_WAVES}
     for w, (s, s0) in zip(waves, ((3, 0), (2 ** 31 + 5, 4))):
         _assert_equal(w, _wave(scene, cam, cfg, seed=s, sample0=s0,
@@ -164,21 +166,22 @@ def test_seed_is_read_from_the_device_scalar():
 
 
 def test_a_new_key_replaces_the_held_one():
-    """A scene holds one key: another film size records anew and drops
-    the first; the first size records anew when it comes back."""
+    """A device holds one regeneration key: another number of iterations
+    records anew and drops the first; the first records anew when it
+    comes back; the recording goes with its scene."""
     scene, cam = _scene("rounded_cube_env")
     cfg = PathConfig(max_depth=3)
     path.reset_graph_counts()
     _wave(scene, cam, cfg, seed=1)
-    first = _held(scene)
+    first = _held()
     with torch.no_grad():
         render_regen(scene, cam, RES, RES, ITERS + 1, cfg, seed=1)
-    assert _held(scene) is not first
+    assert _held() is not first
     _wave(scene, cam, cfg, seed=1)
     assert path.graph_counts()["captures"] == 3
-    sid = id(scene)
     del scene, first
-    assert sid not in regen_graph._HELD
+    gc.collect()
+    assert (torch.device("cpu"), "segments") not in regen_graph._HELD
 
 
 def test_fresh_camera_that_requires_grad_records_anew():
@@ -203,3 +206,27 @@ def test_fresh_camera_that_requires_grad_records_anew():
     for w, c in zip(waves, cams):
         _assert_equal(w, _wave(scene, c, cfg, seed=9, grad=True))
     assert not torch.equal(waves[0][0], waves[1][0])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("route", ["sweeps", "walk"])
+def test_empty_results_are_the_hit_records_format(monkeypatch, route,
+                                                  any_hit):
+    """``intersect.empty_results`` has the dtypes, shapes and device of
+    what ``intersect_faces`` returns on a mesh, through the sweeps and
+    through the walk (``MAX_DENSE_FACES`` forced to 0): the recordings'
+    static results, made with no query of their own."""
+    from fountain_tpu_torch.geometry import tensor_tri
+    if route == "walk":
+        monkeypatch.setattr(tensor_tri, "MAX_DENSE_FACES", 0)
+    scene, cam = _scene("rounded_cube_env")
+    assert (scene.triangles.count > tensor_tri.MAX_DENSE_FACES) \
+        == (route == "walk")
+    lane = torch.arange(37, dtype=torch.int32)
+    o, d, _ = bench.make_ray_fn(cam, RES, 1)(lane, torch.zeros_like(lane))
+    t_max = torch.where(lane % 5 == 0, -1.0, float("inf"))
+    got = intersect.intersect_faces(scene, o, d, t_max, any_hit=any_hit)
+    assert got[2].any()
+    assert [(r.dtype, r.shape, r.device) for r in got] == [
+        (r.dtype, r.shape, r.device)
+        for r in intersect.empty_results(37, o.x.device)]

@@ -87,7 +87,7 @@ def test_function_equals_the_plain_loop(scenes, monkeypatch, name, detach):
     one autograd function are the plain loop's, bit for bit, in both
     estimators; the first call of the key records."""
     scene, cam = scenes[name]
-    regen_graph._WAVES.clear()
+    regen_graph._HELD.clear()
     path.reset_graph_counts()
     got = _step(scene, cam, 2_000_000_011, detach)
     counts = path.graph_counts()
@@ -105,7 +105,7 @@ def test_fresh_leaves_and_scene_replay(scenes, monkeypatch):
     (fresh leaf copies, a fresh scene each): one recording, then a
     replay, never a second recording; each step the plain loop's."""
     scene, cam = scenes["flagship"]
-    regen_graph._WAVES.clear()
+    regen_graph._HELD.clear()
     path.reset_graph_counts()
     got = [_step(scene, cam, s) for s in (7, 2 ** 31 + 5)]
     counts = path.graph_counts()
@@ -121,7 +121,7 @@ def test_other_table_shapes_record_anew(scenes, monkeypatch):
     """A texture value table of another shape is another key: it records
     anew, and its step is still the plain loop's."""
     scene, cam = scenes["config3"]
-    regen_graph._WAVES.clear()
+    regen_graph._HELD.clear()
     path.reset_graph_counts()
     _step(scene, cam, 3)
     value = scene.textures.value
@@ -158,17 +158,38 @@ def test_outputs_are_the_callers_own(scenes):
     _assert_equal(first, kept)
 
 
+WAVE = (torch.device("cpu"), "wave")
+
+
 def test_held_wave_goes_with_its_scene():
     """The device's held wave goes when a tensor of its scene whose
     address the key reads goes: nothing of the scene is kept past its
     use."""
     scene, cam = bench.build_scene(RES, "cpu")
-    regen_graph._WAVES.clear()
+    regen_graph._HELD.clear()
     _step(scene, cam, 5)
-    assert torch.device("cpu") in regen_graph._WAVES
+    assert WAVE in regen_graph._HELD
     del scene, cam
     gc.collect()
-    assert torch.device("cpu") not in regen_graph._WAVES
+    assert WAVE not in regen_graph._HELD
+
+
+def test_each_kind_keeps_its_own_recording(scenes):
+    """A regeneration render and a differentiable wave on one device
+    hold a recording each: alternating them records each once, and both
+    stay held."""
+    scene, cam = scenes["config3"]
+    regen_graph._HELD.clear()
+    path.reset_graph_counts()
+    for seed in (1, 2):
+        with torch.no_grad():
+            bench.wave(scene, cam, RES, seed, n_iters=7)
+        _step(scene, cam, seed)
+    assert path.graph_counts() == {
+        "captures": 1, "replays": 13, "eager_iterations": 0,
+        "wave_captures": 1, "wave_replays": 1, "eager_waves": 0}
+    assert set(regen_graph._HELD) == {WAVE, (torch.device("cpu"),
+                                             "segments")}
 
 
 def test_backward_imports_no_symbolic_shapes():
