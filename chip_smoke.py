@@ -4,10 +4,11 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is skipped):
-  1. setup: card name and power limit, builds of csrc/tri_sweep.cu and
-     csrc/bvh_walk.cu (nvcc, sm_90a, both started together), their
-     compile logs, and each kernel's build facts (registers, shared
-     memory, spills, thread blocks per SM); a spill fails the run;
+  1. setup: card name and power limit, builds of csrc/tri_sweep.cu,
+     csrc/bvh_walk.cu and csrc/scatter_rows.cu (nvcc, sm_90a, all started
+     together), their compile logs, and each kernel's build facts
+     (registers, shared memory, spills, thread blocks per SM); a spill
+     fails the run;
   2. kernel parity: each sweep kernel against its plain PyTorch version on
      four random meshes, on 4,096 random rays against the leaf-ordered
      rounded cube, and 100,000 rays from the cube's interior (0 leaks);
@@ -122,7 +123,21 @@ Phases (any failure exits non-zero; no phase is skipped):
      ``--devices 1`` rendering logo_cube; samples [0, 2) + a checkpoint
      + [2, 4) bit-equal to [0, 4) on the card; ``mipmap_debug`` on
      data/logo.png and a JPEG written and read back by the port's codecs
-     (no Pillow needed).
+     (no Pillow needed);
+ 15. the gathers' backward kernel (csrc/scatter_rows.cu, built in phase
+     1 with the others): the flagship step at full width launching it
+     once a differentiable gather in its recording step (624 into the
+     texel atlas, global atomics; 204 into the texture value and shading
+     tables, shared memory) and not from the host in a replayed step;
+     then, at the inputs of the gathers of bounces 0 and 3 (recorded from
+     a step through the plain loop), each call held to float64
+     index_add_ (relative L2 1e-5), and per call: the wrapper (zero fill
+     + kernel), the library call alone and zeros + index_add_
+     (``library_ms``) each timed as one CUDA graph of the bounce's calls,
+     the plain version eager, the bytes bound (lanes x (4 C + index
+     bytes) + rows x C x 4 at 3.35 TB/s), the share of lanes with a
+     non-zero row and the atomic adds a call; index_add_'s own relative
+     L2 against float64 beside the kernel's.
 
 Prints the kernels' JSON line, the card line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -2102,6 +2117,156 @@ def phase_sharded(scene, cam):
     return out
 
 
+SCATTER_BOUNCES = (0, 3)   # bounces whose gathers' backward phase 15 times
+SCATTER_RTOL = 1e-5        # relative L2 against float64 index_add_
+SCATTER_REPS = 10
+
+
+def plain_fixed_wave(scene, o, d, lane, sample, spread, cfg, seed,
+                     count_rays, detach_sampling):
+    """The plain loop (op by op) in place of ``path._graphed_wave``."""
+    from fountain_tpu_torch.geometry import intersect
+    from fountain_tpu_torch.integrator import path
+    detach = path._detach if detach_sampling else path._attached
+    return intersect.answer_queries(scene, path._fixed_wave(
+        scene, path._first_lanes(o, d, lane, sample, spread), cfg, seed,
+        count_rays, detach))
+
+
+def capture_scatter_inputs(scene, cam, seed, bounces):
+    """One flagship step through the plain loop, recording the backward
+    input (grad, idx) of each differentiable gather whose forward ran in
+    one of ``bounces`` (its closest-hit sweeps launched before it, less
+    one); returns them by (table shape, bounce), in backward order."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.core import gather
+    from fountain_tpu_torch.geometry import tri_sweep as ts
+    from fountain_tpu_torch.integrator import path
+    base, graphed = gather._GatherRows, path._graphed_wave
+    captured = {}
+
+    class Recording(base):
+        @staticmethod
+        def forward(ctx, table, idx):
+            ctx.bounce = ts.launch_counts["tri_sweep_closest"] - 1
+            return base.forward(ctx, table, idx)
+
+        @staticmethod
+        def backward(ctx, grad):
+            if ctx.bounce in bounces:
+                captured.setdefault((tuple(ctx.shape), ctx.bounce), []) \
+                    .append((grad.clone(), ctx.saved_tensors[0].clone()))
+            return base.backward(ctx, grad)
+
+    gather._GatherRows, path._graphed_wave = Recording, plain_fixed_wave
+    reset_counts()
+    try:
+        bench.flagship_step(scene, cam, RES, seed)
+        torch.cuda.synchronize()
+    finally:
+        gather._GatherRows, path._graphed_wave = base, graphed
+    return captured
+
+
+def graph_ms(fn, reps=SCATTER_REPS):
+    """CUDA events around replays of one CUDA graph of ``fn()``: ms a
+    replay (a warm call first, outside the graph)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return events_ms(lambda: graph.replay() or 0, reps)
+
+
+def phase_scatter():
+    """The scatter kernel (``csrc/scatter_rows.cu``) at the flagship
+    step's own inputs. Fails on any gate."""
+    from fountain_tpu_torch import bench
+    from fountain_tpu_torch.core import gather
+    t_phase = time.perf_counter()
+    log(f"phase 15: the gathers' backward kernel at the flagship step's "
+        f"inputs ({RES}x{RES} lanes, bounces {SCATTER_BOUNCES}): held to "
+        f"float64 index_add_ (rel L2 {SCATTER_RTOL}); ms a call of the "
+        "wrapper (zero fill + kernel), of the library call alone and of "
+        "zeros + index_add_ (library_ms), each in one CUDA graph of the "
+        "bounce's calls; the plain version eager; the bytes bound")
+    scene, cam = bench.build_flagship(DEVICE)
+    # the main path: a fresh recording launches once a differentiable
+    # gather (captured into the backward graph), a replay from no host call
+    gather.reset_launch_counts()
+    bench.flagship_step(scene, cam, RES, 1)
+    first = dict(gather.launch_counts)
+    bench.flagship_step(scene, cam, RES, 2)
+    want = {"scatter_rows_shared": 204, "scatter_rows_global": 624}
+    log(f"  launches of a recording step {json.dumps(first)}, after a "
+        f"replayed step {json.dumps(gather.launch_counts)}")
+    if first != want or gather.launch_counts != want:
+        fail(f"scatter launches {first}, {gather.launch_counts}: "
+             f"expected {want} in the recording step and none after")
+    captured = capture_scatter_inputs(scene, cam, 3, SCATTER_BOUNCES)
+    lib = gather._library()
+    rows = {}
+    for (shape, bounce), calls in sorted(captured.items()):
+        table = "x".join(map(str, shape))
+        stats = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+        err = lib_err = 0.0
+        for g, i in calls:
+            ref = torch.zeros(shape, dtype=torch.float64,
+                              device=DEVICE).index_add_(0, i, g.double())
+            norm = float(ref.norm())
+
+            def rel(x):
+                d = x.double() - ref
+                return float(d.norm()) / norm if norm \
+                    else float(d.abs().max())
+            err = max(err, rel(gather.scatter_rows(g, i, shape,
+                                                   stats=stats)))
+            lib_err = max(lib_err, rel(torch.zeros(
+                shape, device=DEVICE).index_add_(0, i, g)))
+        if err > SCATTER_RTOL or not torch.isfinite(torch.tensor(err)):
+            fail(f"scatter_rows into {table} at bounce {bounce}: rel L2 "
+                 f"{err} against float64 index_add_")
+        outs = [torch.zeros(shape, device=DEVICE) for _ in calls]
+        flat = [(g.reshape(g.shape[0], -1).contiguous(), i.contiguous())
+                for g, i in calls]
+
+        def kernel_only():
+            for (g, i), o in zip(flat, outs):
+                e = lib.scatter_rows(*gather.launch_args(g, i, o)[1])
+                if e:
+                    fail(f"scatter_rows launch failed: {e}")
+
+        n = len(calls)
+        lanes = calls[0][1].shape[0]
+        cols = flat[0][0].shape[1]
+        bytes_ = lanes * (4 * cols + calls[0][1].element_size()) \
+            + shape[0] * cols * 4
+        lanes_seen, nonzero, atomics = stats.tolist()
+        row = dict(
+            calls=n, lanes=lanes, rel_l2=err, library_rel_l2=lib_err,
+            ms=graph_ms(lambda: [gather.scatter_rows(g, i, shape)
+                                 for g, i in calls]) / n,
+            kernel_ms=graph_ms(kernel_only) / n,
+            library_ms=graph_ms(lambda: [torch.zeros(
+                shape, device=DEVICE).index_add_(0, i, g)
+                for g, i in calls]) / n,
+            plain_ms=time_cuda(lambda: [gather.scatter_rows_plain(
+                g, i, shape) for g, i in calls], 3) / n,
+            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+            nonzero_share=nonzero / lanes_seen,
+            atomics_per_call=atomics / n)
+        log(f"  scatter_rows into {table}, bounce {bounce}: "
+            + json.dumps(row))
+        rows[(table, bounce)] = row
+    out = dict(launches_per_step=want, rows=rows,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"  phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2110,6 +2275,7 @@ def main():
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
 
+    from fountain_tpu_torch.core import gather
     from fountain_tpu_torch.geometry import bvh_walk as bw
     from fountain_tpu_torch.geometry import tri_sweep as ts
 
@@ -2132,6 +2298,9 @@ def main():
             log(f"  nvcc {src}: " + line)
     info = {name: ts.kernel_info(name) for name in ts.KERNELS}
     info.update({name: bw.kernel_info(name) for name in bw.KERNELS})
+    info.update({f"scatter_rows_int{8 * b}_{level}": gather.kernel_info(
+        b, level == "shared") for b in (4, 8)
+        for level in ("global", "shared")})
     for name, facts in info.items():
         log(f"  {name}: " + json.dumps(facts))
         if facts["local_bytes"]:
@@ -2153,6 +2322,7 @@ def main():
     large = stamp(phase_large_scene())
     modes = stamp(phase_modes())
     sharded = stamp(phase_sharded(scene, cam))
+    scatter = stamp(phase_scatter())
     paths = {"config3_wave": wave["launches"],
              "config3_step": step["launches_per_step"],
              "logo_cube_cli_regen": flag["cli_regen"]["launches"],
@@ -2253,6 +2423,19 @@ def main():
             large_mesh={f"it{it}": dict(row, sweep_at_same_rays={
                 k: large["kernels"][(sweep, it)][k] for k in ROW_KEYS})
                 for it, row in rows.items()}))
+    kernels.append(dict(
+        name="scatter_rows", route="cuda",
+        source="fountain_tpu_torch/csrc/scatter_rows.cu",
+        replaces="none: the JAX package's gather backward "
+                 "(fountain_tpu/core/gather.py) is a one-hot matmul or "
+                 "XLA's scatter-add, no pallas_call; here it replaces "
+                 "index_add_, the backward of index_select "
+                 "(core/gather.py gather_rows)",
+        launches_per_flagship_step=scatter["launches_per_step"],
+        build={k: v for k, v in info.items()
+               if k.startswith("scatter_rows")},
+        logo_cube_step={f"{table}_bounce{b}": row
+                        for (table, b), row in scatter["rows"].items()}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

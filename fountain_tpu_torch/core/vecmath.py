@@ -10,6 +10,8 @@ from dataclasses import dataclass
 
 import torch
 
+from fountain_tpu_torch.core.gather import gather_rows
+
 Float = torch.float32
 
 # Machine epsilon / 2 for f32 (= 2^-24), as used by the error bounds.
@@ -138,10 +140,11 @@ def zeros3(shape, device) -> V3:
 
 
 def gather3(table: torch.Tensor, idx) -> V3:
-    """Rows ``idx`` [N] of an [R, 3] table as a V3, by ``index_select``:
-    its backward is ``index_add_`` (a ``table[idx]`` gather's backward is
+    """Rows ``idx`` [N] of an [R, 3] table as a V3, by ``gather_rows``
+    (``index_select``; on a card under autograd its backward is the
+    ``scatter_rows`` kernel; a ``table[idx]`` gather's backward would be
     an accumulating ``index_put_`` that serialises duplicate indices)."""
-    r = torch.index_select(table, 0, idx)
+    r = gather_rows(table, idx)
     return V3(r[:, 0], r[:, 1], r[:, 2])
 
 

@@ -64,8 +64,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # each CUDA source of the port and its flags beyond NVCC_FLAGS: the BVH
 # walk's Woop test needs every product and sum rounded on its own (its
-# Veltkamp split is exact only so), the sweep's FMAs are deliberate
-SOURCES = {"tri_sweep": [], "bvh_walk": ["-fmad=false"]}
+# Veltkamp split is exact only so), the sweep's FMAs are deliberate;
+# scatter_rows is core/gather.py's kernel
+SOURCES = {"tri_sweep": [], "bvh_walk": ["-fmad=false"], "scatter_rows": []}
 
 # launches per kernel; reset and read by callers that account for a run
 launch_counts = {"tri_sweep_closest": 0, "tri_sweep_any": 0}

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from fountain_tpu_torch.core import transform as tf
+from fountain_tpu_torch.core.gather import gather_rows
 from fountain_tpu_torch.core.sampling import (pdf_env_alias,
                                               sample_env_alias,
                                               uniform_sample_sphere,
@@ -150,11 +151,11 @@ def _mesh_light_point(scene: Scene, li, u1, u2):
     k = torch.minimum(f0.to(torch.int32).clamp_min(0), count - 1)
     frac = (f0 - k.to(torch.float32)).clamp(0.0, 1.0 - 1e-7)
     j0 = start + k
-    prob = scene.light_tri[:, 0].index_select(0, j0.long())
-    alias = scene.light_tri[:, 1].index_select(0, j0.long()).detach()
+    prob = gather_rows(scene.light_tri[:, 0], j0.long())
+    alias = gather_rows(scene.light_tri[:, 1], j0.long()).detach()
     take_alias = frac >= prob
     face = torch.where(take_alias, alias.to(torch.int32), j0)
-    rc = scene.light_tri.index_select(0, face.long())
+    rc = gather_rows(scene.light_tri, face.long())
     # the residual of the alias cell, remapped to a fresh uniform
     resid = torch.where(take_alias,
                         (frac - prob) / (1.0 - prob).clamp_min(1e-12),

@@ -9,8 +9,9 @@ candidate direction and selects one per lane by material type and a
 uniform lobe pick, so a lane draws the same random numbers as in the JAX
 package. The sampled direction is detached under the detached-sampling
 estimator and attached otherwise; f and pdf at it stay attached to the
-material and texture tables. Gathers of those tables are ``index_select``, whose backward is
-``index_add_``.
+material and texture tables. Gathers of those tables are
+``gather.gather_rows`` (``index_select``; on a card under autograd its
+backward is the ``scatter_rows`` kernel).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from fountain_tpu_torch.core.gather import gather_rows
 from fountain_tpu_torch.core.sampling import cosine_sample_hemisphere
 from fountain_tpu_torch.core.vecmath import (INV_PI, V3, dot, normalize,
                                              refract, where3)
@@ -80,7 +82,7 @@ def _shading_table(scene: Scene) -> torch.Tensor:
     tids = torch.stack([m.kd_tex, m.ks_tex, m.kr_tex, m.kt_tex, m.sigma_tex,
                         m.rough_u_tex, m.rough_v_tex], dim=1)  # [M, 7]
     t = tids.clamp(0, max(tex.count - 1, 0)).reshape(-1)
-    rows = lambda a: torch.index_select(a, 0, t).reshape(  # noqa: E731
+    rows = lambda a: gather_rows(a, t).reshape(  # noqa: E731
         m.count, _N_SLOTS, -1)
     z = zeros[:, None, :].expand(-1, _N_SLOTS, 1)
     slots = torch.cat([
@@ -94,15 +96,15 @@ def _shading_table(scene: Scene) -> torch.Tensor:
 
 def shading_rows(scene: Scene, mat_id) -> torch.Tensor:
     """[N, 96] shading-table rows of per-lane material ids, by
-    ``index_select`` (its backward is ``index_add_``)."""
+    ``gather_rows``."""
     mid = mat_id.clamp(0, max(scene.materials.count - 1, 0))
-    return torch.index_select(_shading_table(scene), 0, mid)
+    return gather_rows(_shading_table(scene), mid)
 
 
 def gather_shading(scene: Scene, hit: Hit, tex_width=None) -> ShadeParams:
     """Evaluate the material table + textures at the hit points.
 
-    One [N, 96] ``index_select`` of the packed shading table resolves the
+    One [N, 96] ``gather_rows`` of the packed shading table resolves the
     material constants and every constant/uv/image slot; slots whose
     texture is a checker or scale graph take the ``eval_texture`` walk
     (only in scenes that have one). A slot that no material type of the

@@ -50,20 +50,24 @@ def test_import_leaves_no_jax_in_sys_modules():
 
 
 def test_walk_modules_build_nothing_at_import():
-    """The BVH modules import without building anything: nvcc and g++ run
-    at first use only (the wrappers' ``_library``), and the walk's
-    kernels and counts are named as chip_smoke.py reports them."""
+    """The BVH modules and the gathers' module import without building
+    anything: nvcc and g++ run at first use only (the wrappers'
+    ``_library``), and the walk's kernels and counts are named as
+    chip_smoke.py reports them."""
     code = (
         "import fountain_tpu_torch.native as n\n"
         "import fountain_tpu_torch.geometry.bvh_walk as bw\n"
         "import fountain_tpu_torch.geometry.tri_sweep as ts\n"
+        "import fountain_tpu_torch.core.gather as g\n"
         "assert n._LIB is None and bw._LIB is None and ts._LIB is None\n"
+        "assert g._LIB is None\n"
         "assert bw.KERNELS == ('bvh_walk_closest', 'bvh_walk_any')\n"
-        "assert set(ts.SOURCES) == {'tri_sweep', 'bvh_walk'}\n"
+        "assert set(ts.SOURCES) == {'tri_sweep', 'bvh_walk', "
+        "'scatter_rows'}\n"
         "assert '-fmad=false' in ts.SOURCES['bvh_walk']\n"
         "assert not ts.build_logs\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    for src in ("bvh_walk.cu", "lbvh.cc"):
+    for src in ("bvh_walk.cu", "lbvh.cc", "scatter_rows.cu"):
         assert (ROOT / "fountain_tpu_torch" / "csrc" / src).is_file()
